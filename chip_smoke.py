@@ -7,25 +7,41 @@ Needs one CUDA card and nvcc; exits non-zero when either is missing, and
 when run outside a checkout of the repo. Phases, each reported on a line:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: both CUDA kernels from csrc/, compiled in parallel;
+2. build: the four CUDA sources of the five kernels from csrc/, compiled
+   in parallel;
 3. data: the bench's synthetic plot (32 heads x 3000 + 104,000 ground =
    200,000 splats, 12 ring views at 1600x1200 -> 10 train / 2 test) made
    with the port's generator from seed 0, and a "trained" SH-degree-3
    model PLY made from its ground truth (seeded f_rest and per-axis scale
    jitter);
-4. kernels: each kernel against its plain PyTorch version on one
-   full-width view (decode_cull keys and alive count exactly equal;
+4. kernels: the serving kernels against their plain PyTorch versions on
+   one full-width view (decode_cull keys and alive count exactly equal;
    composite_fwd within the stated tolerance), both timed with CUDA events;
-5. main path: `apps/render_sets.main` over both splits with the launch
+5. serving path: `apps/render_sets.main` over both splits with the launch
    counters reset just before and read just after, the PNG trees checked,
    every view's entries_total checked against its budget, one view checked
    against the plain compositor, and the steady render_fwd FPS;
-6. a `kernels` JSON line, then the device line last.
+6. train kernels: the training kernels against their plain versions on
+   train view 0 of the stand-in model under the L1 + SSIM loss against
+   that view's image (composite_train_fwd, composite_bwd, segsum within
+   the stated bounds), the end-to-end parameter gradients of the kernel
+   path against the all-plain path (within 2% of each leaf's max |g|),
+   each kernel, its plain version and, for segsum, torch.segment_reduce
+   timed with CUDA events;
+7. training path: `apps/train_vanilla.main` on the bench scene (100,000
+   initial points from points3D, SH 3, bench.py's densify schedule) with
+   the launch counters reset just before and read just after: finite
+   logged losses, a densify event, the entry-budget watchdog, the test
+   PSNR rise, and the saved PLY rendered through `apps/render_sets`;
+8. steady training rate: TRAIN_TIMED Trainer.step calls at SH degree 3
+   with no densify event inside, on the host clock;
+9. a `kernels` JSON line, then the device line last.
 Work files go to `_smoke_work/` in the checkout and are removed on success.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -46,10 +62,31 @@ PEAK_F32_FLOPS = 67e12
 COMPOSITE_ATOL = 1e-4
 COMPOSITE_RTOL = 1e-4
 
+# composite_train_fwd: the image as composite_fwd's. Its stop is equal on
+# every pixel but those whose transmittance lands within rounding of the
+# 1e-4 floor (the kernel's sequential log-T sum against a cumsum); those
+# are counted and printed, and held under STOP_MISMATCH_MAX of the pixels.
+STOP_MISMATCH_MAX = 1e-3
+# composite_bwd: each entry row's sums over up to 1024 pixels run in
+# another order (a shuffle tree against a tensor-axis sum); the error is
+# held against each column's max |value|.
+BWD_REL = 1e-3
+# segsum: float32 sums in a shuffle tree against a float64 running sum.
+SEGSUM_REL = 1e-5
+# End-to-end parameter gradients, kernel path against all-plain path, as
+# tests/test_pallas.py holds the TPU backward to XLA autodiff.
+GRAD_REL = 0.02
+# The test-split PSNR after TRAIN_ITERS iterations must beat the one after
+# the first iteration by this many dB (the first run on an H100 rose
+# 7.35 dB, 17.32 -> 24.67).
+PSNR_RISE_DB = 3.0
+
 BENCH = dict(width=1600, height=1200, n_cams=12, n_heads=32,
              pts_per_head=3000, ground_pts=104_000, seed=0)
 ITERATION = 30_000
 FPS_RENDERS = 30
+TRAIN_ITERS = 300
+TRAIN_TIMED = 30
 DEVICE = "cuda"
 
 
@@ -192,9 +229,9 @@ def main_path(model_dir: str, scene) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(CR.launches)
-    for k, v in launches.items():
-        if v <= 0:
-            fail(f"kernel {k} was not launched on the main path")
+    for k in ("decode_cull", "composite_fwd"):
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched on the serving path")
 
     w, h = scene.image_size
     bg = torch.zeros(3, device=DEVICE)
@@ -282,6 +319,322 @@ def render_fwd_plain(scene, split: str, i: int, budget: int):
     return img[2:5].cpu().numpy()       # rows: weight sum, depth, rgb
 
 
+def timed_once(fn):
+    """(fn(), its time in ms) with CUDA events, for the plain versions,
+    which are too slow to repeat at full width."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the rasterizer's kernel calls to their plain versions on the
+    card's tensors for the duration (the all-plain reference path)."""
+    from wheat3dgs_tpu_torch.ops import cuda_raster as CR
+
+    names = ("decode_cull", "composite_train_fwd", "composite_bwd", "segsum")
+    saved = {k: getattr(CR, k) for k in names}
+    try:
+        for k in names:
+            setattr(CR, k, getattr(CR, k + "_plain"))
+        yield
+    finally:
+        for k, fn in saved.items():
+            setattr(CR, k, fn)
+
+
+def check_train_kernels(scene):
+    """Phase 6: the training kernels against their plain versions on train
+    view 0 of the stand-in model, under the L1 + SSIM loss."""
+    import dataclasses
+
+    import torch
+
+    from wheat3dgs_tpu_torch.models.gaussians import GaussianParams
+    from wheat3dgs_tpu_torch.ops import cuda_raster as CR
+    from wheat3dgs_tpu_torch.ops.binning import pick_entry_budget
+    from wheat3dgs_tpu_torch.ops.losses import photometric_loss
+    from wheat3dgs_tpu_torch.ops.projection import project_gaussians
+    from wheat3dgs_tpu_torch.render.pipeline import (RasterConfig,
+                                                     entry_demand_probe,
+                                                     render)
+
+    st = scene.gaussians
+    w, h = scene.image_size
+    cam = scene.cam_arrays("train", 0)
+    gt = scene.gt_image("train", 0)
+    bg = torch.zeros(3, device=DEVICE)
+    # The entry budget the trainer's ladder picks for this view.
+    budget = pick_entry_budget(int(entry_demand_probe(
+        st, *cam, width=w, height=h)))
+    with torch.no_grad():
+        splats = project_gaussians(
+            st.params.means, st.scales(), st.params.quats, st.opacity(),
+            *cam, w, h, sh=st.sh(), sh_degree=scene.sh_degree)
+        plan = CR.alloc_prologue(splats, w, h, budget)
+        key, alive = CR.decode_cull(plan)
+        skeys, starts, ends, perm = CR.sorted_stream(
+            key, plan.t_total, plan.rank_bits, with_perm=True)
+        feat = CR.entry_features(splats, plan.order, True, True)
+    nv = feat.shape[1] - 6
+    cols = 6 + nv
+    e, n = skeys.shape[0], feat.shape[0]
+    entries = int(alive)
+
+    # composite_train_fwd
+    fargs = (skeys, starts, ends, feat, plan.rank_bits, w, h)
+    img_k, stop_k = CR.composite_train_fwd(*fargs)
+    (img_p, stop_p), fwd_plain_ms = timed_once(
+        lambda: CR.composite_train_fwd_plain(*fargs))
+    if not bool(torch.isfinite(img_k).all()):
+        fail("composite_train_fwd produced non-finite values")
+    err = (img_k - img_p).abs()
+    if not bool((err <= COMPOSITE_ATOL + COMPOSITE_RTOL * img_p.abs()).all()):
+        fail(f"composite_train_fwd differs from its plain version: max abs "
+             f"err {float(err.max())}")
+    if not torch.equal(img_k, CR.composite_fwd(*fargs)):
+        fail("composite_train_fwd's image differs from composite_fwd's")
+    stop_off = int((stop_k != stop_p).sum())
+    if stop_off > STOP_MISMATCH_MAX * w * h:
+        fail(f"composite_train_fwd stop differs on {stop_off} pixels")
+    _, (visited, weighted) = CR.composite_fwd_plain(*fargs, with_counts=True)
+    fwd = dict(
+        ms=cuda_time_ms(lambda: CR.composite_train_fwd(*fargs), 20),
+        plain_ms=fwd_plain_ms, max_abs_err=float(err.max()),
+        stop_pixels_differing=stop_off,
+        tolerance={"atol": COMPOSITE_ATOL, "rtol": COMPOSITE_RTOL},
+        shape={"tiles": plan.t_total, "entries": entries, "value_rows": nv,
+               "visited_pairs": visited, "weighted_pairs": weighted})
+    fwd["bound_ms"], fwd["bound_by"] = bound(
+        entries * 8 + plan.t_total * 8 + feat.numel() * 4
+        + ((1 + nv) * 4 + 4) * w * h,
+        visited * 14 + weighted * (4 + 2 * (1 + nv)))
+
+    # The image's cotangent under the training loss.
+    img_v = img_k.detach().requires_grad_(True)
+    color = img_v[2:5] + (1.0 - img_v[0])[None] * bg[:, None, None]
+    grad = torch.autograd.grad(photometric_loss(color, gt),
+                               img_v)[0].contiguous()
+
+    # composite_bwd
+    bargs = (skeys, perm, starts, ends, feat, img_k, stop_k, grad,
+             plan.rank_bits, w, h)
+    rows_k = CR.composite_bwd(*bargs)
+    rows_p, bwd_plain_ms = timed_once(lambda: CR.composite_bwd_plain(*bargs))
+    if not bool(torch.isfinite(rows_k).all()):
+        fail("composite_bwd produced non-finite values")
+    col_max = rows_p.abs().amax(dim=0).clamp(min=1e-30)
+    bwd_rel = float(((rows_k - rows_p).abs() / col_max).max())
+    if bwd_rel > BWD_REL:
+        fail(f"composite_bwd differs from its plain version: {bwd_rel} of "
+             f"the column max (bound {BWD_REL})")
+    # Pairs the replay walks: every pixel up to its stop.
+    tiles_x = plan.tiles_x
+    ty = torch.arange(h, device=DEVICE)[:, None] // CR.TILE_PX
+    tx = torch.arange(w, device=DEVICE)[None, :] // CR.TILE_PX
+    bwd_visited = int((stop_k.long() - starts[ty * tiles_x + tx]).sum())
+    bwd = dict(
+        ms=cuda_time_ms(lambda: CR.composite_bwd(*bargs), 20),
+        plain_ms=bwd_plain_ms,
+        max_abs_err=float((rows_k - rows_p).abs().max()),
+        max_rel_err_of_column_max=bwd_rel, bound_rel=BWD_REL,
+        shape={"slots": e, "entries": entries, "columns": cols,
+               "visited_pairs": bwd_visited, "weighted_pairs": weighted})
+    # Keys + permutation of the live entries, the feature table, image,
+    # cotangent and stop per pixel, the (E, cols) row write; the forward's
+    # replay per visited pair, ~36 + 4 nv ops per weighted pair (u, the
+    # prefix, dα and the 6 + nv columns and their reduction).
+    bwd["bound_ms"], bwd["bound_by"] = bound(
+        entries * 16 + plan.t_total * 8 + feat.numel() * 4
+        + (2 * (1 + nv) * 4 + 4) * w * h + e * cols * 4,
+        bwd_visited * 14 + weighted * (36 + 4 * nv))
+
+    # segsum
+    sargs = (rows_k, plan.seg_start, plan.seg_end)
+    out_k = CR.segsum(*sargs)
+    out_p, seg_plain_ms = timed_once(lambda: CR.segsum_plain(*sargs))
+    scale = out_p.abs().amax(dim=0).clamp(min=1e-30)
+    seg_rel = float(((out_k - out_p).abs() / scale).max())
+    if seg_rel > SEGSUM_REL:
+        fail(f"segsum differs from its plain version: {seg_rel} of the "
+             f"column max (bound {SEGSUM_REL})")
+    used = int(plan.seg_end[-1])
+    offsets = torch.cat([plan.seg_start, plan.seg_end[-1:]]).long()
+    lib_out = torch.segment_reduce(rows_k[:used], "sum", offsets=offsets)
+    lib_rel = float(((lib_out - out_p).abs() / scale).max())
+    seg = dict(
+        ms=cuda_time_ms(lambda: CR.segsum(*sargs), 50),
+        plain_ms=seg_plain_ms,
+        library_ms=cuda_time_ms(lambda: torch.segment_reduce(
+            rows_k[:used], "sum", offsets=offsets), 50),
+        library_rel_err=lib_rel,
+        max_abs_err=float((out_k - out_p).abs().max()),
+        max_rel_err_of_column_max=seg_rel, bound_rel=SEGSUM_REL,
+        shape={"slots_summed": used, "ranks": n, "columns": cols})
+    seg["bound_ms"], seg["bound_by"] = bound(
+        used * cols * 4 + n * 8 + n * cols * 4, used * cols)
+
+    # End-to-end parameter gradients: kernels against the all-plain path.
+    def leaf_grads():
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in st.params.as_dict().items()}
+        view = dataclasses.replace(st, params=GaussianParams(**leaves))
+        out = render(view, *cam, w, h, scene.sh_degree, bg=bg,
+                     config=RasterConfig(entry_budget=budget))
+        return torch.autograd.grad(photometric_loss(out.color, gt),
+                                   list(leaves.values()))
+
+    names = list(st.params.as_dict())
+    got = leaf_grads()
+    with plain_kernels():
+        ref = leaf_grads()
+    grad_rel = {}
+    for k, a, b in zip(names, got, ref):
+        top = float(b.abs().max())
+        grad_rel[k] = float((a - b).abs().max()) / top if top > 0 else 0.0
+        if not bool(torch.isfinite(a).all()) or grad_rel[k] > GRAD_REL:
+            fail(f"end-to-end gradient of {k}: {grad_rel[k]} of its max "
+                 f"(bound {GRAD_REL})")
+    return fwd, bwd, seg, {"budget": budget, "grad_rel_of_max": grad_rel}
+
+
+def train_path(scene_dir: str, out_dir: str):
+    """Phase 7: apps/train_vanilla over the bench scene, with the launch
+    counters read around exactly that call."""
+    import math
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from wheat3dgs_tpu_torch import training
+    from wheat3dgs_tpu_torch.apps import render_sets, train_vanilla
+    from wheat3dgs_tpu_torch.ops import cuda_raster as CR
+
+    # Record each step's demand and budget (tensors; read after the run so
+    # the record adds no host sync).
+    record = []
+    step = training.Trainer.step
+
+    def recording_step(self, it, *args):
+        m = step(self, it, *args)
+        record.append((it, m["entries_total"], self.config.entry_budget,
+                       m["loss"]))
+        return m
+
+    n_iter = TRAIN_ITERS
+    argv = ["-s", scene_dir, "-m", out_dir, "--device", DEVICE, "--eval",
+            "--iterations", str(n_iter), "--densify_from_iter", "20",
+            "--densification_interval", "40",
+            "--densify_until_iter", str(n_iter - 100),
+            "--opacity_reset_interval", "100000",
+            "--test_iterations", "1", str(n_iter),
+            "--save_iterations", str(n_iter), "--quiet"]
+    training.Trainer.step = recording_step
+    try:
+        CR.reset_launches()
+        t0 = time.perf_counter()
+        trainer, scene = train_vanilla.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(CR.launches)
+    finally:
+        training.Trainer.step = step
+    for k in ("decode_cull", "composite_train_fwd", "composite_bwd",
+              "segsum", "composite_fwd"):
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched on the training path")
+
+    n_init = len(scene.data.point_cloud.points)
+    logs = [json.loads(ln) for ln in open(os.path.join(out_dir,
+                                                       "metrics.jsonl"))]
+    steps = [r for r in logs if "loss" in r]
+    tests = [r for r in logs if "test_psnr" in r]
+    if not steps or not all(math.isfinite(r["loss"]) for r in steps):
+        fail(f"non-finite or missing logged loss: {steps}")
+    losses = [float(x[3]) for x in record]
+    if not all(math.isfinite(x) for x in losses):
+        fail("a training step's loss is not finite")
+    if not any(r["n_alive"] != n_init for r in steps):
+        fail(f"no densify event changed n_alive from {n_init}")
+    # Every step whose demand exceeded its budget must see the watchdog
+    # raise the budget within 2 checks, unless the run ended first.
+    k = trainer.overflow_check_every
+    demand = [(it, int(t), b) for it, t, b, _ in record]
+    budget_at = {it: b for it, _, b in demand}
+    over = [(it, t, b) for it, t, b in demand if t > b]
+    for it, t, b in over:
+        later = [budget_at[j] for j in range(it + 1, it + 2 * k + 2)
+                 if j in budget_at]
+        if len(later) == 2 * k + 1 and max(later) <= b:
+            fail(f"step {it}: demand {t} over budget {b} and the watchdog "
+                 "did not raise it")
+    if [r["iter"] for r in tests] != [1, n_iter]:
+        fail(f"test evaluations at {[r['iter'] for r in tests]}")
+    rise = tests[-1]["test_psnr"] - tests[0]["test_psnr"]
+    if not rise > PSNR_RISE_DB:
+        fail(f"test PSNR rose {rise:.3f} dB (< {PSNR_RISE_DB})")
+    ply = os.path.join(out_dir, "point_cloud", f"iteration_{n_iter}",
+                       "point_cloud.ply")
+    if not os.path.exists(ply):
+        fail(f"missing {ply}")
+    render_sets.main(["-m", out_dir, "--device", DEVICE, "--quiet",
+                      "--skip_train"])
+    for i in range(len(scene.data.test)):
+        png = np.asarray(Image.open(os.path.join(
+            out_dir, "test", f"ours_{n_iter}", "renders", f"{i:05d}.png")))
+        if png.shape != (BENCH["height"], BENCH["width"], 3) or \
+                png.std() < 1.0:
+            fail(f"trained model: blank or misshapen test render {i}")
+    return trainer, scene, dict(
+        seconds=seconds, launches=launches, iterations=n_iter,
+        initial_points=n_init, capacity=trainer.state.capacity,
+        n_alive=int(trainer.state.num_alive), logged=steps,
+        test_psnr=[r["test_psnr"] for r in tests], psnr_rise_db=rise,
+        overflow_steps=len(over), overflow_events=trainer.overflow_events,
+        entry_budget=trainer.config.entry_budget,
+        max_demand=max(t for _, t, _ in demand))
+
+
+def train_rate(trainer, scene) -> dict:
+    """Phase 8: TRAIN_TIMED Trainer.step calls at SH degree 3 with no SH
+    ramp, densify event or budget probe inside the window (iterations
+    10_004.. avoid multiples of 40 and 1000)."""
+    import random
+
+    import torch
+
+    w, h = scene.image_size
+    n_train = len(scene.data.train)
+    gts = torch.as_tensor(scene.data.train.images, device=DEVICE)
+    cams = [scene.cam_arrays("train", i) for i in range(n_train)]
+    trainer.active_sh_degree = trainer.max_sh_degree
+    rnd = random.Random(1)
+    it0 = 10_001
+    for it in range(it0, it0 + 3):
+        vi = rnd.randint(0, n_train - 1)
+        trainer.step(it, cams[vi], gts[vi], w, h)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for it in range(it0 + 3, it0 + 3 + TRAIN_TIMED):
+        vi = rnd.randint(0, n_train - 1)
+        m = trainer.step(it, cams[vi], gts[vi], w, h)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return dict(it_per_s=TRAIN_TIMED / seconds,
+                ms_per_step=seconds / TRAIN_TIMED * 1e3,
+                n_alive=int(trainer.state.num_alive),
+                entry_budget=trainer.config.entry_budget,
+                last_loss=float(m["loss"]))
+
+
 def main() -> None:
     try:
         import torch
@@ -304,7 +657,7 @@ def main() -> None:
         nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
         tf32_matmul=torch.backends.cuda.matmul.allow_tf32)
 
-    # 2. build (both kernels in parallel)
+    # 2. build (every source in parallel)
     t0 = time.perf_counter()
     per_kernel = cuda_build.build()
     ptxas = {}
@@ -337,25 +690,47 @@ def main() -> None:
     dec, comp = check_kernels(scene)
     say("kernels", decode_cull=dec, composite_fwd=comp)
 
-    # 5. the main path
+    # 5. the serving path
     mp = main_path(model_dir, scene)
     say("main_path", **mp)
     print(f"render_fwd: {mp['fps']:.3f} FPS at "
           f"{BENCH['width']}x{BENCH['height']}, {n} splats, SH 3 on "
           f"{smi}", flush=True)
 
+    # 6. training kernels against their plain versions
+    tfwd, tbwd, tseg, e2e = check_train_kernels(scene)
+    say("train_kernels", composite_train_fwd=tfwd, composite_bwd=tbwd,
+        segsum=tseg, end_to_end=e2e)
+    del scene
+
+    # 7. the training path
+    trainer, tscene, tp = train_path(scene_dir,
+                                     os.path.join(WORK, "train_model"))
+    say("train_path", **tp)
+
+    # 8. steady training rate
+    rate = train_rate(trainer, tscene)
+    say("train_rate", **rate)
+    print(f"train_step: {rate['it_per_s']:.3f} it/s at "
+          f"{BENCH['width']}x{BENCH['height']}, {rate['n_alive']} splats, "
+          f"SH 3 on {smi}", flush=True)
+
+    src = "wheat3dgs_tpu_torch/csrc/"
+    tpu = "wheat3dgs_tpu/ops/pallas_raster.py:"
     rows = []
-    for name, r, src, rep in (
-            ("decode_cull", dec, "wheat3dgs_tpu_torch/csrc/decode_cull.cu",
-             "wheat3dgs_tpu/ops/pallas_raster.py:381"),
-            ("composite_fwd", comp,
-             "wheat3dgs_tpu_torch/csrc/composite_fwd.cu",
-             "wheat3dgs_tpu/ops/pallas_raster.py:1094")):
-        rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": rep, "launches": mp["launches"][name],
+    for name, r, file, line, path in (
+            ("decode_cull", dec, "decode_cull.cu", 381, mp),
+            ("composite_fwd", comp, "composite_fwd.cu", 1094, mp),
+            ("composite_train_fwd", tfwd, "composite_fwd.cu", 704, tp),
+            ("composite_bwd", tbwd, "composite_bwd.cu", 840, tp),
+            ("segsum", tseg, "segsum.cu", 507, tp)):
+        rows.append({"name": name, "route": "cuda", "source": src + file,
+                     "replaces": f"{tpu}{line}",
+                     "launches": path["launches"][name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"], "library_ms": None})
+                     "bound_by": r["bound_by"],
+                     "library_ms": r.get("library_ms")})
     shutil.rmtree(WORK, ignore_errors=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s; card: {smi}",
           flush=True)

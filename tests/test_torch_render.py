@@ -192,7 +192,7 @@ def test_state_from_numpy_round_trip():
                                 device="cpu")
     assert state.capacity == 30 and state.sh().shape == (30, 12)
     np.testing.assert_array_equal(state.opacity().numpy()[~alive], 0.0)
-    p2, a2, i2 = TG.state_to_numpy(state)
+    p2, a2, i2 = TG.state_to_numpy(state)[:3]
     np.testing.assert_array_equal(a2, alive)
     np.testing.assert_array_equal(i2, inst)
     for k, v in params.items():

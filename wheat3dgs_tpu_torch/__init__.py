@@ -8,10 +8,13 @@ CUDA kernel here (`csrc/`, bound in `ops/cuda_raster.py`), each with a plain
 PyTorch version beside it that the CPU tests use.
 
 Conventions:
-- float32 throughout. Matmuls never run in TF32: this package leaves
-  `torch.backends.cuda.matmul.allow_tf32` at its default (False) and runs
-  no convolution, so projection's `hom @ w2c.T` is exact float32 as in the
-  JAX reference (`ops/projection.py`).
+- float32 throughout, never TF32. Matmuls: this package leaves
+  `torch.backends.cuda.matmul.allow_tf32` at its default (False), so
+  projection's `hom @ w2c.T` is exact float32 as in the JAX reference
+  (`ops/projection.py`). Convolutions: SSIM's blur is a depthwise
+  `conv2d` (`ops/losses.py`), and cuDNN runs float32 convolutions in TF32
+  by default, so importing the package sets
+  `torch.backends.cudnn.allow_tf32 = False`.
 - The device is explicit. Entry points take `device` (`--device` on the
   CLI), default "cuda", and raise when no card is present and the caller
   did not ask for "cpu". There is no silent CPU fallback.
@@ -22,6 +25,8 @@ from __future__ import annotations
 import torch
 
 __version__ = "0.1.0"
+
+torch.backends.cudnn.allow_tf32 = False
 
 
 def resolve_device(device="cuda") -> torch.device:

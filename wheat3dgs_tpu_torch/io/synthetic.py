@@ -18,6 +18,7 @@ import os
 import numpy as np
 import torch
 
+from ..ops.knn import knn_mean_sq_dist
 from ..utils import graphics
 
 # The JAX generator's defaults (wheat3dgs_tpu/io/synthetic.py).
@@ -92,15 +93,6 @@ def _image_name(plot_id: int, i: int, n_cams: int) -> str:
     if n_cams <= 12:
         return f"plot_{plot_id:03d}_{i + 1:02d}.png"
     return f"plot_{plot_id:03d}_r{i // 12}_{(i % 12) + 1:02d}.png"
-
-
-def knn_mean_sq_dist(points: np.ndarray, k: int = 3) -> np.ndarray:
-    """Mean squared distance from each point to its k nearest neighbours,
-    self excluded (distCUDA2 semantics)."""
-    from scipy.spatial import cKDTree
-
-    d, _ = cKDTree(points).query(points, k=k + 1)
-    return (d[:, 1:] ** 2).mean(axis=1).astype(np.float32)
 
 
 def gt_params(n_heads: int = 4, pts_per_head: int = 120,

@@ -5,19 +5,31 @@ x,y,z,nx,ny,nz,f_dc_0..2,f_rest_*,opacity,scale_*,rot_*, plus the wheat
 `which_object` channel (stored f4). f_rest is flattened channel-major
 ((N, K-1, 3) -> transpose -> (N, 3*(K-1))).
 
-Checkpoints (with Adam state) wait for the training slice.
+Checkpoints are the JAX package's `.npz` layout (its save_checkpoint /
+load_checkpoint, :95-107): `iteration` plus `leaf_i` for the leaves of the
+state in `jax.tree.flatten(GaussianState)` order (CHECKPOINT_LEAVES), so a
+checkpoint written by either package restores in the other.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import os
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..io.ply import read_ply, write_ply
-from .gaussians import (PARAM_FIELDS, GaussianParams, GaussianState,
-                        init_state)
+from .gaussians import (PARAM_FIELDS, STAT_FIELDS, GaussianParams,
+                        GaussianState, init_state, state_from_numpy,
+                        state_to_numpy)
+
+# jax.tree.flatten order of the JAX GaussianState: params, Adam mu, Adam nu
+# (each in PARAM_FIELDS order), the Adam step, alive, instance_id, stats.
+CHECKPOINT_LEAVES = (
+    [f"params.{f}" for f in PARAM_FIELDS] + [f"mu.{f}" for f in PARAM_FIELDS]
+    + [f"nu.{f}" for f in PARAM_FIELDS]
+    + ["step", "alive", "instance_id"] + list(STAT_FIELDS))
 
 
 def save_ply(state: GaussianState, path: str) -> None:
@@ -51,9 +63,11 @@ def save_ply(state: GaussianState, path: str) -> None:
     write_ply(path, {k: np.asarray(v, "<f4") for k, v in props.items()})
 
 
-def load_ply(path: str, device="cuda") -> Tuple[GaussianState, int]:
+def load_ply(path: str, capacity: Optional[int] = None,
+             device="cuda") -> Tuple[GaussianState, int]:
     """Read a (reference, JAX-package or port) point_cloud.ply -> (state on
-    `device`, padded to the JAX package's capacity rule, sh_degree)."""
+    `device`, padded to `capacity` slots or by the JAX package's capacity
+    rule, sh_degree)."""
     from .. import resolve_device
 
     dev = resolve_device(device)
@@ -85,4 +99,36 @@ def load_ply(path: str, device="cuda") -> Tuple[GaussianState, int]:
                             log_scales=t(log_scales), sh_dc=t(sh_dc),
                             sh_rest=t(sh_rest),
                             opacity_logit=t(v["opacity"]))
-    return init_state(params, instance_id=inst), sh_degree
+    return init_state(params, instance_id=inst, capacity=capacity), \
+        sh_degree
+
+
+def save_checkpoint(state: GaussianState, iteration: int, path: str) -> None:
+    """The full training state (params, Adam moments and step, masks,
+    statistics) at `iteration`, as the JAX package writes it."""
+    st = state_to_numpy(state)
+    leaves = ([st.params[f] for f in PARAM_FIELDS]
+              + [st.adam["mu"][f] for f in PARAM_FIELDS]
+              + [st.adam["nu"][f] for f in PARAM_FIELDS]
+              + [np.asarray(st.adam["step"], np.int32), st.alive,
+                 st.instance_id]
+              + [getattr(st, f) for f in STAT_FIELDS])
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, iteration=iteration,
+             **{f"leaf_{i}": a for i, a in enumerate(leaves)})
+
+
+def load_checkpoint(path: str, device="cuda") -> Tuple[GaussianState, int]:
+    """A checkpoint of either package -> (state on `device` at the stored
+    capacity, iteration)."""
+    data = np.load(path)
+    leaf = {name: data[f"leaf_{i}"]
+            for i, name in enumerate(CHECKPOINT_LEAVES)}
+    state = state_from_numpy(
+        {f: leaf[f"params.{f}"] for f in PARAM_FIELDS},
+        alive=leaf["alive"], instance_id=leaf["instance_id"], device=device,
+        adam={"mu": {f: leaf[f"mu.{f}"] for f in PARAM_FIELDS},
+              "nu": {f: leaf[f"nu.{f}"] for f in PARAM_FIELDS},
+              "step": int(leaf["step"])},
+        **{f: leaf[f] for f in STAT_FIELDS})
+    return state, int(data["iteration"])

@@ -2,8 +2,11 @@
 
 Each source compiles with `nvcc` for sm_90a into its own shared library
 with a plain C interface, loaded with ctypes (no PyTorch headers, so a
-build takes seconds). Libraries go to `wheat3dgs_tpu_torch/_build/` under a
-name that carries a hash of the source and flags, so an edited source
+build takes seconds). A source may hold several kernels
+(composite_fwd.cu holds composite_fwd and composite_train_fwd, which share
+their device code with composite_bwd.cu through composite_common.cuh).
+Libraries go to `wheat3dgs_tpu_torch/_build/` under a name that carries a
+hash of the source, the shared headers and the flags, so an edited source
 rebuilds and concurrent processes never load a half-written file. Nothing
 is built at import time.
 
@@ -28,11 +31,13 @@ BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON_FLAGS = ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
                 "-Xptxas", "-v"]
-# Per-kernel extra flags. decode_cull's tile cull must round exactly as the
+# Per-source extra flags. decode_cull's tile cull must round exactly as the
 # plain version's separate float32 ops do: no FMA contraction.
 KERNELS = {
     "decode_cull": ["-fmad=false"],
     "composite_fwd": [],
+    "composite_bwd": [],
+    "segsum": [],
 }
 
 _loaded: dict = {}
@@ -53,6 +58,7 @@ def _flags(name: str) -> list:
 
 def lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     h = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{h[:12]}.so"
 

@@ -1,19 +1,35 @@
-"""Forward-only rasterizer over an exact-allocation entry stream, with its
-two CUDA kernels.
+"""The exact-allocation entry-stream rasterizer, forward-only and
+differentiable, with its five CUDA kernels.
 
-Counterpart of the forward-only parts of wheat3dgs_tpu/ops/pallas_raster.py
-(`_rank_bits`, `_alloc_entries`, the sorted stream, `rasterize_pallas_fwd`):
+Counterpart of wheat3dgs_tpu/ops/pallas_raster.py (`_rank_bits`,
+`_alloc_entries`, the sorted stream, `rasterize_pallas_fwd`,
+`rasterize_pallas`):
 
 - prologue (torch ops, as JAX runs them in XLA): stable depth argsort,
   exclusive cumsum of each splat's capped covered-rect area, the owning
-  depth rank of every slot, and the demand `total`;
+  depth rank of every slot, the demand `total`, and each rank's segment
+  [seg_start, seg_end) of the slot array;
 - `decode_cull` (kernel, csrc/decode_cull.cu; replaces `_decode_kernel`):
   slot -> (tile, depth rank), exact ellipse/tile cull, int64 sort key
   (tile << rank_bits) | rank and the surviving-entry count;
-- one torch sort of the keys and a searchsorted of the per-tile bounds;
+- one torch sort of the keys (its permutation maps sorted entries back to
+  their slots) and a searchsorted of the per-tile bounds;
 - `composite_fwd` (kernel, csrc/composite_fwd.cu; replaces
   `_fwd_only_kernel`): per-tile front-to-back compositing of [weight sum,
-  depth?, colours...] straight into the image.
+  depth?, colours...] straight into the image;
+- `composite_train_fwd` (kernel, the same source; replaces `_fwd_kernel`):
+  the same image plus, per pixel, the sorted position one past the last
+  entry it included (the backward's stop, CUDA's `n_contrib`);
+- `composite_bwd` (kernel, csrc/composite_bwd.cu; replaces `_bwd_kernel`):
+  the front-to-back replay that writes each entry's (6 + nv) gradient row
+  to its pre-sort slot;
+- `segsum` (kernel, csrc/segsum.cu; replaces `_segsum_kernel`): each depth
+  rank's contiguous slot segment summed into its row of d feat_r.
+
+`rasterize` wraps the last three in one torch.autograd.Function whose
+differentiable input is the rank-ordered feature table
+[x, y, a, b, c, opacity, depth, colours...]; autograd carries its gradient
+through `entry_features` and projection to the parameters.
 
 Each kernel wrapper takes its plain PyTorch version for a tensor on the
 CPU, and launches the kernel for a CUDA tensor (or raises); there is no
@@ -45,7 +61,8 @@ MAX_SPAN = 1024      # tiles one splat may cover (center-cropped beyond)
 PLAIN_TILE_BATCH = 64    # tiles per step of the plain compositor
 PLAIN_CHUNK = 128        # entries per step of the plain compositor
 
-launches = {"decode_cull": 0, "composite_fwd": 0}
+launches = {"decode_cull": 0, "composite_fwd": 0, "composite_train_fwd": 0,
+            "composite_bwd": 0, "segsum": 0}
 
 
 def reset_launches() -> None:
@@ -76,6 +93,11 @@ class EntryPlan(NamedTuple):
     tiles_x: int
     t_total: int
     rank_bits: int
+    # Rank r owns slots [seg_start[r], seg_end[r]) (int32, (N,)): its
+    # offset and count clipped to the budget. Consecutive segments touch,
+    # so they partition [0, min(total, E)).
+    seg_start: torch.Tensor
+    seg_end: torch.Tensor
 
 
 # --- kernel plumbing -----------------------------------------------------
@@ -103,28 +125,26 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 
-def _lib(name: str, argtypes: list) -> ctypes.CDLL:
+def _launch(name: str, argtypes: list, args: tuple, device: torch.device,
+            source: Optional[str] = None) -> None:
+    """Call `<name>_launch(*args, stream)` from the library built from
+    csrc/<source or name>.cu on the current stream of `device`, raise on a
+    non-zero CUDA error, and count the launch."""
     from . import cuda_build
 
-    lib = cuda_build.load(name)
+    src = source or name
+    lib = cuda_build.load(src)
     fn = getattr(lib, f"{name}_launch")
     if fn.argtypes is None:
-        fn.argtypes = argtypes
+        fn.argtypes = argtypes + [_P]
         fn.restype = ctypes.c_int
-        err = getattr(lib, f"{name}_error_string")
+    rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        err = getattr(lib, f"{src}_error_string")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
-    return lib
-
-
-def _raise_on(lib: ctypes.CDLL, name: str, rc: int) -> None:
-    if rc != 0:
-        msg = getattr(lib, f"{name}_error_string")(rc).decode()
-        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+        raise RuntimeError(f"{name}: CUDA error {rc} ({err(rc).decode()})")
+    launches[name] += 1
 
 
 # --- decode_cull -----------------------------------------------------------
@@ -203,71 +223,104 @@ def decode_cull(plan: EntryPlan):
         raise ValueError("entry budget exceeds the exact-f32 offset range")
     key = torch.empty((e,), dtype=torch.int64, device=owner.device)
     alive = torch.empty((), dtype=torch.int32, device=owner.device)
-    lib = _lib("decode_cull", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
-                               _P])
-    rc = lib.decode_cull_launch(
-        owner.data_ptr(), rect_r.data_ptr(), geo_r.data_ptr(),
-        total.data_ptr(), e, plan.tiles_x, TILE_PX, plan.t_total,
-        plan.rank_bits, key.data_ptr(), alive.data_ptr(),
-        _stream(owner.device))
-    _raise_on(lib, "decode_cull", rc)
-    launches["decode_cull"] += 1
+    _launch("decode_cull", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+            (owner.data_ptr(), rect_r.data_ptr(), geo_r.data_ptr(),
+             total.data_ptr(), e, plan.tiles_x, TILE_PX, plan.t_total,
+             plan.rank_bits, key.data_ptr(), alive.data_ptr()),
+            owner.device)
     return key, alive
 
 
-# --- composite_fwd -----------------------------------------------------------
+# --- the compositors' plain versions: shared pieces -------------------------
 
 
-def composite_fwd_plain(skeys, starts, ends, feat_r, rank_bits: int,
-                        width: int, height: int, with_counts: bool = False):
-    """Plain PyTorch compositor: the `_fwd_only_kernel` maths per tile and
-    per chunk of PLAIN_CHUNK entries (log-space transmittance via a cumsum
-    over the chunk), PLAIN_TILE_BATCH tiles at a time so it fits on the card
-    at full width. Returns the (1 + nv, H, W) [weight sum, values...]
-    image; with_counts=True also returns (visited, weighted) (pixel,
-    entry) pair counts of a front-to-back walk that stops at the
-    transmittance floor (the work the kernel has to do)."""
+def _to_tiles(x: torch.Tensor, tiles_x: int, tiles_y: int) -> torch.Tensor:
+    """(C, H, W) image -> (T, C, P) rows of each 32x32 tile's pixels, zero
+    beyond the image."""
+    c, h, w = x.shape
+    tile = TILE_PX
+    full = x.new_zeros((c, tiles_y * tile, tiles_x * tile))
+    full[:, :h, :w] = x
+    return full.reshape(c, tiles_y, tile, tiles_x, tile).permute(
+        1, 3, 0, 2, 4).reshape(tiles_x * tiles_y, c, tile * tile)
+
+
+def _from_tiles(raw: torch.Tensor, tiles_x: int, tiles_y: int, width: int,
+                height: int) -> torch.Tensor:
+    """Inverse of _to_tiles: (T, C, P) -> (C, H, W), cropped."""
+    c = raw.shape[1]
+    tile = TILE_PX
+    img = raw.reshape(tiles_y, tiles_x, c, tile, tile)
+    return img.permute(2, 0, 3, 1, 4).reshape(
+        c, tiles_y * tile, tiles_x * tile)[:, :height, :width].contiguous()
+
+
+def _batch_pixels(tids: torch.Tensor, tiles_x: int):
+    """(B, P) float pixel coordinates of the tiles `tids`."""
+    tile = TILE_PX
+    pix = torch.arange(tile * tile, device=tids.device)
+    px = ((tids % tiles_x) * tile).to(torch.float32)[:, None] \
+        + (pix % tile).to(torch.float32)
+    py = ((tids // tiles_x) * tile).to(torch.float32)[:, None] \
+        + (pix // tile).to(torch.float32)
+    return px, py
+
+
+def _chunk_alpha(feat_r, rank, pos, valid, px, py):
+    """Entries at sorted positions pos (B, K) against the pixels (B, P) of
+    their tiles: the features (B, K, F), dx, dy, exp(power), the raw
+    o * exp(power) and alpha (B, P, K) with renderCUDA's clamps (zero where
+    power > 0, alpha < 1/255 or pos is outside the tile's segment)."""
+    e = rank.shape[0]
+    f = feat_r[rank[pos.clamp(max=max(e - 1, 0))]]
+    dx = px[:, :, None] - f[:, None, :, 0]
+    dy = py[:, :, None] - f[:, None, :, 1]
+    power = (-0.5 * (f[:, None, :, 2] * dx * dx
+                     + f[:, None, :, 4] * dy * dy)
+             - f[:, None, :, 3] * dx * dy)
+    ep = torch.exp(power)
+    raw = f[:, None, :, 5] * ep
+    alpha = torch.clamp(raw, max=ALPHA_MAX)
+    alpha = torch.where((power > 0.0) | (alpha < ALPHA_MIN)
+                        | ~valid[:, None, :], torch.zeros_like(alpha), alpha)
+    return f, dx, dy, ep, raw, alpha
+
+
+def _plain_forward(skeys, starts, ends, feat_r, rank_bits: int, width: int,
+                   height: int, with_stop: bool, with_counts: bool):
+    """The `_fwd_kernel` / `_fwd_only_kernel` maths per tile and per chunk
+    of PLAIN_CHUNK entries (log-space transmittance via a cumsum over the
+    chunk), PLAIN_TILE_BATCH tiles at a time so it fits on the card at full
+    width. Returns (image, stop or None, (visited, weighted) or None)."""
     dev = feat_r.device
     nv = feat_r.shape[1] - 6
-    tile, tile_batch, chunk = TILE_PX, PLAIN_TILE_BATCH, PLAIN_CHUNK
-    tiles_x, tiles_y = num_tiles(width, height, tile)
+    tiles_x, tiles_y = num_tiles(width, height, TILE_PX)
     t_total = tiles_x * tiles_y
-    p = tile * tile
-    e = skeys.shape[0]
+    p = TILE_PX * TILE_PX
     rank = skeys & ((1 << rank_bits) - 1)
-    pix = torch.arange(p, device=dev)
-    lx = (pix % tile).to(torch.float32)
-    ly = (pix // tile).to(torch.float32)
     raw = torch.zeros((t_total, 1 + nv, p), dtype=torch.float32, device=dev)
+    stop = torch.zeros((t_total, 1, p), dtype=torch.int64, device=dev)
     visited = torch.zeros((), dtype=torch.int64, device=dev)
     weighted = torch.zeros((), dtype=torch.int64, device=dev)
-    lane = torch.arange(chunk, device=dev)
-    for b0 in range(0, t_total, tile_batch):
-        tids = torch.arange(b0, min(b0 + tile_batch, t_total), device=dev)
+    lane = torch.arange(PLAIN_CHUNK, device=dev)
+    for b0 in range(0, t_total, PLAIN_TILE_BATCH):
+        tids = torch.arange(b0, min(b0 + PLAIN_TILE_BATCH, t_total),
+                            device=dev)
         s = starts[tids].long()
         en = ends[tids].long()
-        longest = int((en - s).max()) if len(tids) else 0
-        px = ((tids % tiles_x) * tile).to(torch.float32)[:, None] + lx
-        py = ((tids // tiles_x) * tile).to(torch.float32)[:, None] + ly
+        longest = int((en - s).max())
+        px, py = _batch_pixels(tids, tiles_x)
         log_t = torch.zeros((len(tids), p), dtype=torch.float32, device=dev)
         acc = torch.zeros((len(tids), 1 + nv, p), dtype=torch.float32,
                           device=dev)
-        for c0 in range(0, longest, chunk):
+        last = s[:, None].expand(len(tids), p).clone()
+        for c0 in range(0, longest, PLAIN_CHUNK):
             if not bool((log_t >= LOG_T_EPS).any()):
                 break
             pos = s[:, None] + c0 + lane                       # (B, K)
             valid = pos < en[:, None]
-            f = feat_r[rank[pos.clamp(max=max(e - 1, 0))]]    # (B, K, F)
-            dx = px[:, :, None] - f[:, None, :, 0]             # (B, P, K)
-            dy = py[:, :, None] - f[:, None, :, 1]
-            power = (-0.5 * (f[:, None, :, 2] * dx * dx
-                             + f[:, None, :, 4] * dy * dy)
-                     - f[:, None, :, 3] * dx * dy)
-            alpha = torch.clamp(f[:, None, :, 5] * torch.exp(power),
-                                max=ALPHA_MAX)
-            alpha = torch.where((power > 0.0) | (alpha < ALPHA_MIN)
-                                | ~valid[:, None, :],
-                                torch.zeros_like(alpha), alpha)
+            f, _, _, _, _, alpha = _chunk_alpha(feat_r, rank, pos, valid,
+                                                px, py)
             l1m = torch.log1p(-alpha)
             log_t_after = log_t[:, :, None] + torch.cumsum(l1m, dim=2)
             include = log_t_after >= LOG_T_EPS
@@ -276,6 +329,10 @@ def composite_fwd_plain(skeys, starts, ends, feat_r, rank_bits: int,
             vals = torch.cat([torch.ones_like(f[:, :, :1]), f[:, :, 6:]],
                              dim=2)                            # (B, K, 1+nv)
             acc += torch.einsum("bpk,bkv->bvp", w, vals)
+            if with_stop:
+                # w > 0 exactly for included live entries (w >= 1e-4/255).
+                last = torch.maximum(last, torch.where(
+                    w > 0, pos[:, None, :] + 1, 0).amax(dim=2))
             if with_counts:
                 # A walk visits an entry while the pixel is still open
                 # before it, i.e. up to and including the stopping entry.
@@ -284,13 +341,51 @@ def composite_fwd_plain(skeys, starts, ends, feat_r, rank_bits: int,
                 weighted += (w > 0).sum()
             log_t = log_t_after[:, :, -1]
         raw[tids] = acc
-    img = raw.reshape(tiles_y, tiles_x, 1 + nv, tile, tile)
-    img = img.permute(2, 0, 3, 1, 4).reshape(
-        1 + nv, tiles_y * tile, tiles_x * tile)[:, :height, :width]
-    img = img.contiguous()
-    if with_counts:
-        return img, (int(visited), int(weighted))
-    return img
+        stop[tids, 0] = last
+    img = _from_tiles(raw, tiles_x, tiles_y, width, height)
+    stop_img = (_from_tiles(stop, tiles_x, tiles_y, width, height)[0]
+                .to(torch.int32) if with_stop else None)
+    counts = (int(visited), int(weighted)) if with_counts else None
+    return img, stop_img, counts
+
+
+def _compositor_shapes(name, skeys, starts, ends, feat_r, width, height):
+    """Check the inputs every compositor kernel takes; (tiles_x, tiles_y,
+    nv)."""
+    tiles_x, tiles_y = num_tiles(width, height, TILE_PX)
+    n, cols = feat_r.shape
+    nv = cols - 6
+    if not 0 <= nv <= FEAT - 7:
+        raise ValueError(f"{name}: {nv} value columns (max {FEAT - 7})")
+    _same_cuda_device(skeys, starts, ends, feat_r)
+    _check(skeys, "skeys", torch.int64, (skeys.shape[0],))
+    _check(starts, "starts", torch.int32, (tiles_x * tiles_y,))
+    _check(ends, "ends", torch.int32, (tiles_x * tiles_y,))
+    _check(feat_r, "feat_r", torch.float32, (n, cols))
+    if skeys.shape[0] >= 1 << 24:
+        raise ValueError(f"{name}: entry budget exceeds the int32 range "
+                         "of the stop positions")
+    return tiles_x, tiles_y, nv
+
+
+def _cuda_only(name: str, t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+
+
+# --- composite_fwd -----------------------------------------------------------
+
+
+def composite_fwd_plain(skeys, starts, ends, feat_r, rank_bits: int,
+                        width: int, height: int, with_counts: bool = False):
+    """Plain PyTorch forward-only compositor (`_plain_forward`). Returns
+    the (1 + nv, H, W) [weight sum, values...] image; with_counts=True also
+    returns (visited, weighted) (pixel, entry) pair counts of a
+    front-to-back walk that stops at the transmittance floor (the work the
+    kernel has to do)."""
+    img, _, counts = _plain_forward(skeys, starts, ends, feat_r, rank_bits,
+                                    width, height, False, with_counts)
+    return (img, counts) if with_counts else img
 
 
 def composite_fwd(skeys, starts, ends, feat_r, rank_bits: int, width: int,
@@ -301,33 +396,198 @@ def composite_fwd(skeys, starts, ends, feat_r, rank_bits: int, width: int,
     if feat_r.device.type == "cpu":
         return composite_fwd_plain(skeys, starts, ends, feat_r, rank_bits,
                                    width, height)
-    if feat_r.device.type != "cuda":
-        raise ValueError(f"composite_fwd: unsupported device {feat_r.device}")
-    tiles_x, tiles_y = num_tiles(width, height, TILE_PX)
-    n, cols = feat_r.shape
-    nv = cols - 6
-    if not 0 <= nv <= FEAT - 7:
-        raise ValueError(f"composite_fwd: {nv} value columns (max {FEAT - 7})")
-    _same_cuda_device(skeys, starts, ends, feat_r)
-    _check(skeys, "skeys", torch.int64, (skeys.shape[0],))
-    _check(starts, "starts", torch.int32, (tiles_x * tiles_y,))
-    _check(ends, "ends", torch.int32, (tiles_x * tiles_y,))
-    _check(feat_r, "feat_r", torch.float32, (n, cols))
+    _cuda_only("composite_fwd", feat_r)
+    tiles_x, tiles_y, nv = _compositor_shapes(
+        "composite_fwd", skeys, starts, ends, feat_r, width, height)
     out = torch.empty((1 + nv, height, width), dtype=torch.float32,
                       device=feat_r.device)
-    lib = _lib("composite_fwd", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                 _F, _F, _F, _P, _P])
-    rc = lib.composite_fwd_launch(
-        skeys.data_ptr(), starts.data_ptr(), ends.data_ptr(),
-        feat_r.data_ptr(), nv, rank_bits, tiles_x, tiles_y, width, height,
-        ALPHA_MIN, ALPHA_MAX, LOG_T_EPS, out.data_ptr(),
-        _stream(feat_r.device))
-    _raise_on(lib, "composite_fwd", rc)
-    launches["composite_fwd"] += 1
+    _launch("composite_fwd",
+            [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P],
+            (skeys.data_ptr(), starts.data_ptr(), ends.data_ptr(),
+             feat_r.data_ptr(), nv, rank_bits, tiles_x, tiles_y, width,
+             height, ALPHA_MIN, ALPHA_MAX, LOG_T_EPS, out.data_ptr()),
+            feat_r.device)
     return out
 
 
-# --- the forward rasterizer ------------------------------------------------
+# --- composite_train_fwd ----------------------------------------------------
+
+
+def composite_train_fwd_plain(skeys, starts, ends, feat_r, rank_bits: int,
+                              width: int, height: int):
+    """Plain PyTorch training compositor: composite_fwd_plain's image and
+    the (H, W) int32 stop (one past the sorted position of the last entry
+    each pixel included; its tile's segment start if none)."""
+    img, stop, _ = _plain_forward(skeys, starts, ends, feat_r, rank_bits,
+                                  width, height, True, False)
+    return img, stop
+
+
+def composite_train_fwd(skeys, starts, ends, feat_r, rank_bits: int,
+                        width: int, height: int):
+    """composite_fwd's inputs -> ((1 + nv, H, W) image, (H, W) int32 stop),
+    the backward's residual."""
+    if feat_r.device.type == "cpu":
+        return composite_train_fwd_plain(skeys, starts, ends, feat_r,
+                                         rank_bits, width, height)
+    _cuda_only("composite_train_fwd", feat_r)
+    tiles_x, tiles_y, nv = _compositor_shapes(
+        "composite_train_fwd", skeys, starts, ends, feat_r, width, height)
+    out = torch.empty((1 + nv, height, width), dtype=torch.float32,
+                      device=feat_r.device)
+    stop = torch.empty((height, width), dtype=torch.int32,
+                       device=feat_r.device)
+    _launch("composite_train_fwd",
+            [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P],
+            (skeys.data_ptr(), starts.data_ptr(), ends.data_ptr(),
+             feat_r.data_ptr(), nv, rank_bits, tiles_x, tiles_y, width,
+             height, ALPHA_MIN, ALPHA_MAX, LOG_T_EPS, out.data_ptr(),
+             stop.data_ptr()),
+            feat_r.device, source="composite_fwd")
+    return out, stop
+
+
+# --- composite_bwd -----------------------------------------------------------
+
+
+def composite_bwd_plain(skeys, perm, starts, ends, feat_r, img, stop, grad,
+                        rank_bits: int, width: int, height: int):
+    """Plain PyTorch backward replay: the `_bwd_kernel` maths in direct form
+    (pallas_raster.py:927-1035), per chunk of PLAIN_CHUNK entries and
+    PLAIN_TILE_BATCH tiles at a time. Per pixel, with the weight-sum row
+    taken as a value row of ones (which replaces JAX's T_final term):
+      A      = sum_rows grad_row * img_row,
+      u_k    = sum_rows grad_row * value_k_row,
+      dα_k   = T_before_k u_k - (A - sum_{j<=k} w_j u_j) / (1 - α_k),
+    zero unless entry k is live, before the pixel's stop and its raw
+    o e^power < 0.99; dpow = dα α. Per entry, summed over its tile's pixels:
+    d xy = Σ dpow (a dx + b dy, b dx + c dy), d conic = Σ dpow (-dx²/2,
+    -dx dy, -dy²/2), d opacity = Σ dα e^power, d value_v = Σ w grad_v.
+    Returns (E, 6 + nv) rows at each entry's pre-sort slot (perm), zero for
+    entries no pixel reached."""
+    dev = feat_r.device
+    nv = feat_r.shape[1] - 6
+    tiles_x, tiles_y = num_tiles(width, height, TILE_PX)
+    t_total = tiles_x * tiles_y
+    e = skeys.shape[0]
+    rank = skeys & ((1 << rank_bits) - 1)
+    out = torch.zeros((e, 6 + nv), dtype=torch.float32, device=dev)
+    g_t = _to_tiles(grad, tiles_x, tiles_y)                    # (T, 1+nv, P)
+    a_t = (g_t * _to_tiles(img, tiles_x, tiles_y)).sum(1)      # (T, P)
+    # Pixels outside the image get stop 0: no entry is ever before it.
+    stop_t = _to_tiles(stop[None].long(), tiles_x, tiles_y)[:, 0]
+    lane = torch.arange(PLAIN_CHUNK, device=dev)
+    for b0 in range(0, t_total, PLAIN_TILE_BATCH):
+        tids = torch.arange(b0, min(b0 + PLAIN_TILE_BATCH, t_total),
+                            device=dev)
+        s = starts[tids].long()
+        en = ends[tids].long()
+        st = stop_t[tids]                                      # (B, P)
+        longest = int((st.amax(dim=1) - s).max())
+        px, py = _batch_pixels(tids, tiles_x)
+        gb = g_t[tids]
+        ab = a_t[tids][:, :, None]
+        log_t = torch.zeros(st.shape, dtype=torch.float32, device=dev)
+        prefix = torch.zeros(st.shape, dtype=torch.float32, device=dev)
+        for c0 in range(0, longest, PLAIN_CHUNK):
+            pos = s[:, None] + c0 + lane                       # (B, K)
+            valid = pos < en[:, None]
+            f, dx, dy, ep, raw, alpha = _chunk_alpha(feat_r, rank, pos,
+                                                     valid, px, py)
+            before = pos[:, None, :] < st[:, :, None]          # (B, P, K)
+            alpha = torch.where(before, alpha, torch.zeros_like(alpha))
+            l1m = torch.log1p(-alpha)
+            log_t_after = log_t[:, :, None] + torch.cumsum(l1m, dim=2)
+            t_before = torch.exp(log_t_after - l1m)
+            w = alpha * t_before
+            vals = torch.cat([torch.ones_like(f[:, :, :1]), f[:, :, 6:]],
+                             dim=2)                            # (B, K, 1+nv)
+            u = torch.einsum("bvp,bkv->bpk", gb, vals)
+            pre = prefix[:, :, None] + torch.cumsum(w * u, dim=2)
+            ok = (alpha > 0) & (raw < ALPHA_MAX)
+            dalpha = torch.where(ok, t_before * u - (ab - pre) / (1.0 - alpha),
+                                 torch.zeros_like(alpha))
+            dpow = dalpha * alpha
+            ca, cb, cc = (f[:, None, :, 2], f[:, None, :, 3],
+                          f[:, None, :, 4])
+            geo = torch.stack([
+                (dpow * (ca * dx + cb * dy)).sum(1),
+                (dpow * (cb * dx + cc * dy)).sum(1),
+                (-0.5 * dpow * dx * dx).sum(1),
+                (-dpow * dx * dy).sum(1),
+                (-0.5 * dpow * dy * dy).sum(1),
+                (dalpha * ep).sum(1)], dim=2)                  # (B, K, 6)
+            dval = torch.einsum("bpk,bvp->bkv", w, gb[:, 1:])  # (B, K, nv)
+            rows = torch.cat([geo, dval], dim=2)
+            out[perm[pos[valid]]] = rows[valid]
+            log_t = log_t_after[:, :, -1]
+            prefix = pre[:, :, -1]
+    return out
+
+
+def composite_bwd(skeys, perm, starts, ends, feat_r, img, stop, grad,
+                  rank_bits: int, width: int, height: int):
+    """The training forward's inputs and residuals ((1 + nv, H, W) image,
+    (H, W) int32 stop), the (E,) int64 sort permutation and the image's
+    cotangent `grad` -> (E, 6 + nv) float32 per-entry gradient rows at the
+    entries' pre-sort slots (zero where no pixel reached the entry)."""
+    if feat_r.device.type == "cpu":
+        return composite_bwd_plain(skeys, perm, starts, ends, feat_r, img,
+                                   stop, grad, rank_bits, width, height)
+    _cuda_only("composite_bwd", feat_r)
+    tiles_x, tiles_y, nv = _compositor_shapes(
+        "composite_bwd", skeys, starts, ends, feat_r, width, height)
+    e = skeys.shape[0]
+    _same_cuda_device(feat_r, perm, img, stop, grad)
+    _check(perm, "perm", torch.int64, (e,))
+    _check(img, "img", torch.float32, (1 + nv, height, width))
+    _check(stop, "stop", torch.int32, (height, width))
+    _check(grad, "grad", torch.float32, (1 + nv, height, width))
+    out = torch.zeros((e, 6 + nv), dtype=torch.float32, device=feat_r.device)
+    _launch("composite_bwd",
+            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P, _P,
+             _P],
+            (skeys.data_ptr(), perm.data_ptr(), starts.data_ptr(),
+             ends.data_ptr(), feat_r.data_ptr(), nv, rank_bits, tiles_x,
+             tiles_y, width, height, ALPHA_MIN, ALPHA_MAX, img.data_ptr(),
+             stop.data_ptr(), grad.data_ptr(), out.data_ptr()),
+            feat_r.device)
+    return out
+
+
+# --- segsum ------------------------------------------------------------------
+
+
+def segsum_plain(vals, seg_start, seg_end):
+    """Plain PyTorch segment sum: differences of a float64 running sum of
+    the rows at the segment bounds."""
+    csum = torch.cat([vals.new_zeros((1, vals.shape[1]), dtype=torch.float64),
+                      torch.cumsum(vals.double(), dim=0)])
+    return (csum[seg_end.long()] - csum[seg_start.long()]).to(torch.float32)
+
+
+def segsum(vals, seg_start, seg_end):
+    """(E, C) float32 slot rows, (N,) int32 segment bounds -> (N, C) float32
+    with row r = sum of vals[seg_start[r]:seg_end[r]]."""
+    if vals.device.type == "cpu":
+        return segsum_plain(vals, seg_start, seg_end)
+    _cuda_only("segsum", vals)
+    e, cols = vals.shape
+    n = seg_start.shape[0]
+    if not 1 <= cols <= FEAT - 1:
+        raise ValueError(f"segsum: {cols} columns (max {FEAT - 1})")
+    _same_cuda_device(vals, seg_start, seg_end)
+    _check(vals, "vals", torch.float32, (e, cols))
+    _check(seg_start, "seg_start", torch.int32, (n,))
+    _check(seg_end, "seg_end", torch.int32, (n,))
+    out = torch.empty((n, cols), dtype=torch.float32, device=vals.device)
+    _launch("segsum", [_P, _P, _P, _I, _I, _P],
+            (vals.data_ptr(), seg_start.data_ptr(), seg_end.data_ptr(), n,
+             cols, out.data_ptr()), vals.device)
+    return out
+
+
+# --- the rasterizers -------------------------------------------------------
 
 
 def alloc_prologue(splats: Splats2D, width: int, height: int,
@@ -382,17 +642,28 @@ def alloc_prologue(splats: Splats2D, width: int, height: int,
                          splats.conic[:, 2], q_max], dim=1)[order]
     rect_r = torch.stack([offs_r, torch.clamp(sx, min=1)[order],
                           rx[order], ry[order]], dim=1)
+    # The segments the backward sums over (JAX's N-scale seg_end,
+    # pallas_raster.py:312-322): every slot of [offs_r, offs_r + count_r)
+    # within the budget belongs to rank r; slots past the demand are culled.
+    seg_start = torch.clamp(offs_r, max=e)
+    seg_end = torch.clamp(offs_r + count_r, max=e)
     return EntryPlan(owner, total, geo_r.contiguous(), rect_r.contiguous(),
-                     order, tiles_x, t_total, key_rank_bits(n, t_total))
+                     order, tiles_x, t_total, key_rank_bits(n, t_total),
+                     seg_start, seg_end)
 
 
-def sorted_stream(keys, t_total: int, rank_bits: int):
-    """Sorted keys and per-tile segment bounds [starts[t], ends[t])."""
-    skeys = torch.sort(keys).values
+def sorted_stream(keys, t_total: int, rank_bits: int,
+                  with_perm: bool = False):
+    """Sorted keys and per-tile segment bounds [starts[t], ends[t]); with
+    with_perm=True also the sort's (E,) int64 permutation (each sorted
+    entry's pre-sort slot)."""
+    srt = torch.sort(keys)
+    skeys = srt.values
     bounds = torch.arange(t_total + 1, dtype=torch.int64,
                           device=keys.device) << rank_bits
     b = torch.searchsorted(skeys, bounds, out_int32=True)
-    return skeys, b[:-1].contiguous(), b[1:].contiguous()
+    out = (skeys, b[:-1].contiguous(), b[1:].contiguous())
+    return out + (srt.indices,) if with_perm else out
 
 
 def entry_features(splats: Splats2D, order, with_color: bool,
@@ -448,5 +719,74 @@ def rasterize_fwd(
         if bg is not None:
             color = color + (1.0 - alpha)[None] * bg[:, None, None]
     return RasterOut(color=color, depth=depth, alpha=alpha,
+                     radii=splats.radius, entries_total=plan.total,
+                     entries_alive=alive)
+
+
+class _Composite(torch.autograd.Function):
+    """feat_r (N, 6 + nv) -> (1 + nv, H, W) image through the training
+    compositor; the backward runs composite_bwd and segsum (JAX's
+    custom_vjp `comp`, pallas_raster.py:1385-1523). The residual is the
+    image itself plus the per-pixel stop: only the weight-sum, depth and
+    colour rows reach a loss, so the 16 packed accumulators and T_final
+    that the TPU kernel keeps are not needed."""
+
+    @staticmethod
+    def forward(ctx, feat_r, skeys, perm, starts, ends, seg_start, seg_end,
+                rank_bits: int, width: int, height: int):
+        img, stop = composite_train_fwd(skeys, starts, ends, feat_r,
+                                        rank_bits, width, height)
+        ctx.save_for_backward(feat_r, skeys, perm, starts, ends, seg_start,
+                              seg_end, img, stop)
+        ctx.geometry = (rank_bits, width, height)
+        return img
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        (feat_r, skeys, perm, starts, ends, seg_start, seg_end, img,
+         stop) = ctx.saved_tensors
+        rank_bits, width, height = ctx.geometry
+        d_ent = composite_bwd(skeys, perm, starts, ends, feat_r, img, stop,
+                              grad.contiguous(), rank_bits, width, height)
+        return (segsum(d_ent, seg_start, seg_end),) + (None,) * 9
+
+
+def rasterize(
+    splats: Splats2D,
+    width: int,
+    height: int,
+    bg: Optional[torch.Tensor] = None,
+    entry_budget: int = 0,
+) -> RasterOut:
+    """Differentiable rasterization (rasterize_pallas): colour, depth and
+    alpha (the weight sum) are differentiable in every splat field that
+    reaches the compositor (xy, conic, opacity, depth, colour) and in bg.
+    The prologue, decode_cull and the key sort run without gradient, as
+    JAX's stop_gradient does. Returns RasterOut with the entries_total /
+    entries_alive telemetry (entries_total > entry_budget: entries were
+    cropped)."""
+    c = splats.color.shape[1]
+    if c > FEAT - 8:
+        raise ValueError(f"at most {FEAT - 8} colour channels")
+    n = splats.xy.shape[0]
+    if entry_budget <= 0:
+        entry_budget = max(1024, -(-16 * n // CHUNK) * CHUNK)
+    if entry_budget % CHUNK:
+        raise ValueError("entry_budget must be 128-aligned")
+
+    with torch.no_grad():
+        plan = alloc_prologue(splats, width, height, int(entry_budget))
+        keys, alive = decode_cull(plan)
+        skeys, starts, ends, perm = sorted_stream(
+            keys, plan.t_total, plan.rank_bits, with_perm=True)
+    feat_r = entry_features(splats, plan.order, True, True)
+    img = _Composite.apply(feat_r, skeys, perm, starts, ends, plan.seg_start,
+                           plan.seg_end, plan.rank_bits, width, height)
+    alpha = img[0]
+    color = img[2:2 + c]
+    if bg is not None:
+        color = color + (1.0 - alpha)[None] * bg[:, None, None]
+    return RasterOut(color=color, depth=img[1], alpha=alpha,
                      radii=splats.radius, entries_total=plan.total,
                      entries_alive=alive)

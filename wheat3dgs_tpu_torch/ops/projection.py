@@ -47,13 +47,18 @@ def project_gaussians(
     sh_degree: int = 3,
     colors: Optional[torch.Tensor] = None,
     scale_modifier: float = 1.0,
+    ndc_offset: Optional[torch.Tensor] = None,
 ) -> Splats2D:
     """Project N Gaussians into one camera.
 
     means3d (N, 3); scales (N, 3) activated; quats (N, 4) unnormalized;
     opacities (N,) activated; w2c / full_proj (4, 4) acting on column
     vectors; sh (N, 3K) flat coefficients (used when `colors` is None);
-    colors (N, C) precomputed colours (label rendering path).
+    colors (N, C) precomputed colours (label rendering path); ndc_offset
+    (N, 2) zeros whose gradient is the CUDA rasterizer's viewspace-point
+    gradient (dL/d_ndc, with the 0.5 * W pixel scale), which densification
+    accumulates. Every guard keeps the autograd partials finite on culled
+    and dead slots (zero quats, points at the camera centre or behind it).
     Returns Splats2D with radius == 0 where culled.
     """
     n = means3d.shape[0]
@@ -70,6 +75,8 @@ def project_gaussians(
                          torch.ones_like(depth))
     p_w = 1.0 / w_safe
     ndc = p_hom[:, :2] * p_w[:, None]                        # (N, 2)
+    if ndc_offset is not None:
+        ndc = ndc + ndc_offset
     xy = torch.stack(
         [((ndc[:, 0] + 1.0) * width - 1.0) * 0.5,
          ((ndc[:, 1] + 1.0) * height - 1.0) * 0.5], dim=1)

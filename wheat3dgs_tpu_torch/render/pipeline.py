@@ -1,11 +1,11 @@
 """Render API: GaussianState + camera -> images (reference:
 gaussian_renderer/__init__.py `render`, :22-106).
 
-Counterpart of the no-grad half of wheat3dgs_tpu/render/pipeline.py:
-`RasterConfig`, `inference_config`, `RenderOut`, `render_fwd` and the
-exact-allocation branch of `adapt_config`. The port has one rasterizer,
-the budgeted entry stream of ops/cuda_raster.py (the JAX "pallas"
-backend); the differentiable `render` waits for the training slice.
+Counterpart of wheat3dgs_tpu/render/pipeline.py: `RasterConfig`,
+`inference_config`, `RenderOut`, the differentiable `render` (training),
+`render_fwd` (no grad) and the exact-allocation branch of `adapt_config`.
+The port has one rasterizer, the budgeted entry stream of
+ops/cuda_raster.py (the JAX "pallas" backend).
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import torch
 
 from ..models.gaussians import GaussianState
 from ..ops.binning import capped_rect, num_tiles, pick_entry_budget
-from ..ops.cuda_raster import MAX_SPAN, TILE_PX, rasterize_fwd
+from ..ops.cuda_raster import MAX_SPAN, TILE_PX, rasterize, rasterize_fwd
 from ..ops.projection import project_gaussians
 
 
@@ -63,6 +63,47 @@ class RenderOut(NamedTuple):
 def _zero_colors(state: GaussianState) -> torch.Tensor:
     return torch.zeros((state.capacity, 1), dtype=torch.float32,
                        device=state.device)
+
+
+def render(
+    state: GaussianState,
+    w2c: torch.Tensor,
+    full_proj: torch.Tensor,
+    cam_center: torch.Tensor,
+    tanfovx,
+    tanfovy,
+    width: int,
+    height: int,
+    sh_degree: int,
+    bg: Optional[torch.Tensor] = None,
+    scale_modifier: float = 1.0,
+    override_color: Optional[torch.Tensor] = None,
+    used_mask: Optional[torch.Tensor] = None,
+    ndc_offset: Optional[torch.Tensor] = None,
+    config: RasterConfig = RasterConfig(),
+) -> RenderOut:
+    """Differentiable render of one view: colour, depth and alpha carry
+    autograd to the state's parameters, `override_color`, `bg` and
+    `ndc_offset` (the viewspace-gradient hook, ops/projection.py).
+
+    used_mask: optional (N,) bool — render only this subset (the reference
+    slices tensors, gaussian_renderer/__init__.py:154-156; masking opacity
+    to 0 is equivalent and keeps shapes fixed).
+    """
+    opacity = state.opacity()
+    if used_mask is not None:
+        opacity = torch.where(used_mask, opacity, torch.zeros_like(opacity))
+    splats = project_gaussians(
+        state.params.means, state.scales(), state.params.quats, opacity,
+        w2c, full_proj, cam_center, tanfovx, tanfovy, width, height,
+        sh=None if override_color is not None else state.sh(),
+        sh_degree=sh_degree, colors=override_color,
+        scale_modifier=scale_modifier, ndc_offset=ndc_offset)
+    out = rasterize(splats, width, height, bg,
+                    entry_budget=config.entry_budget)
+    return RenderOut(color=out.color, depth=out.depth, alpha=out.alpha,
+                     radii=out.radii, entries_total=out.entries_total,
+                     entries_alive=out.entries_alive)
 
 
 @torch.no_grad()
