@@ -65,6 +65,21 @@ def test_render_sets_refuses_without_card(tmp_path):
         render_sets.main(["-m", str(tmp_path)])
 
 
+@pytest.mark.parametrize("app", ["run_3d_seg_app", "eval_wheatgs_app",
+                                 "prof_scan"])
+def test_seg_and_probe_entry_points_refuse_without_card(tmp_path, app):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    import importlib
+
+    mod = importlib.import_module(f"wheat3dgs_tpu_torch.apps.{app}")
+    argv = {"run_3d_seg_app": ["-s", str(tmp_path), "-m", str(tmp_path)],
+            "eval_wheatgs_app": ["-m", str(tmp_path)],
+            "prof_scan": []}[app]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(argv)
+
+
 @pytest.mark.parametrize("alone", [False, True])
 def test_chip_smoke_refuses_without_card(tmp_path, alone):
     if torch.cuda.is_available():

@@ -15,7 +15,10 @@ composite_bwd within 1e-3 of each column's max |value| (the per-entry sums
 run in another order: a shuffle tree over 1024 pixels against a sum over a
 tensor axis); segsum within 1e-5 of each column's max (float32 against a
 float64 running sum); end-to-end gradients within 2% of each leaf's max
-|g|, the bound of tests/test_pallas.py.
+|g|, the bound of tests/test_pallas.py. The segmentation lift's shape (9
+value rows: depth + 8 label channels) is held to the same bounds. The scan
+probe within 1e-5 of the block's max |value| (float32 sums in another
+order, renormalised every step).
 """
 
 import contextlib
@@ -26,6 +29,7 @@ import pytest
 import torch
 
 from wheat3dgs_tpu_torch.ops import cuda_raster as CR
+from wheat3dgs_tpu_torch.ops import scan_probe as SP
 from wheat3dgs_tpu_torch.ops.projection import project_gaussians
 
 
@@ -35,7 +39,7 @@ def _card():
     return torch.device("cuda")
 
 
-def _splats(dev, n, width, height, seed):
+def _splats(dev, n, width, height, seed, channels=3):
     """Random anisotropic splats seen by a look-at camera 4 units away."""
     rng = np.random.default_rng(seed)
     q = rng.normal(size=(n, 4)).astype(np.float32)
@@ -56,7 +60,7 @@ def _splats(dev, n, width, height, seed):
                                                                keepdims=True)),
         t(rng.uniform(0.05, 0.95, n)), t(w2c), t(proj @ w2c),
         t([0.0, 0.0, -4.0]), math.tan(0.4), math.tan(fovy / 2), width,
-        height, colors=t(rng.uniform(0, 1, (n, 3))))
+        height, colors=t(rng.uniform(0, 1, (n, channels))))
 
 
 @pytest.mark.gpu
@@ -95,8 +99,8 @@ def test_composite_fwd_kernel_matches_plain(with_color, with_depth):
     torch.testing.assert_close(img, ref, atol=1e-4, rtol=1e-4)
 
 
-def _stream(dev, n=3000, width=131, height=77, seed=2):
-    s = _splats(dev, n, width, height, seed=seed)
+def _stream(dev, n=3000, width=131, height=77, seed=2, channels=3):
+    s = _splats(dev, n, width, height, seed=seed, channels=channels)
     plan = CR.alloc_prologue(s, width, height, n * 16)
     key, _ = CR.decode_cull(plan)
     skeys, starts, ends, perm = CR.sorted_stream(
@@ -106,10 +110,11 @@ def _stream(dev, n=3000, width=131, height=77, seed=2):
 
 
 @pytest.mark.gpu
-def test_composite_train_fwd_kernel_matches_plain():
+@pytest.mark.parametrize("channels", [3, 8])
+def test_composite_train_fwd_kernel_matches_plain(channels):
     dev = _card()
     width, height = 131, 77
-    plan, skeys, starts, ends, _, feat = _stream(dev)
+    plan, skeys, starts, ends, _, feat = _stream(dev, channels=channels)
     args = (skeys, starts, ends, feat, plan.rank_bits, width, height)
     before = CR.launches["composite_train_fwd"]
     img, stop = CR.composite_train_fwd(*args)
@@ -123,10 +128,11 @@ def test_composite_train_fwd_kernel_matches_plain():
 
 
 @pytest.mark.gpu
-def test_composite_bwd_kernel_matches_plain():
+@pytest.mark.parametrize("channels", [3, 8])
+def test_composite_bwd_kernel_matches_plain(channels):
     dev = _card()
     width, height = 131, 77
-    plan, skeys, starts, ends, perm, feat = _stream(dev)
+    plan, skeys, starts, ends, perm, feat = _stream(dev, channels=channels)
     img, stop = CR.composite_train_fwd(skeys, starts, ends, feat,
                                        plan.rank_bits, width, height)
     g = torch.as_tensor(np.random.default_rng(0).normal(
@@ -222,3 +228,24 @@ def test_rasterize_gradients_match_plain_path():
         scale = float(b.abs().max())
         assert scale > 0
         assert float((a - b).abs().max()) / scale < 0.02
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", SP.KINDS)
+@pytest.mark.parametrize("rows,steps,start", [(1024, 256, "ones"),
+                                              (64, 17, "normal")])
+def test_scan_probe_kernel_matches_plain(kind, rows, steps, start):
+    dev = _card()
+    if start == "ones":
+        x = torch.full((rows, SP.LANES), 0.001, device=dev)
+    else:
+        x = torch.as_tensor(np.random.default_rng(4).normal(
+            size=(rows, SP.LANES)).astype(np.float32), device=dev)
+    before = CR.launches["scan_probe"]
+    got = SP.scan_probe(x, kind, steps)
+    ref = SP.scan_probe_plain(x, kind, steps)
+    torch.cuda.synchronize()
+    assert CR.launches["scan_probe"] == before + 1
+    scale = float(ref.abs().max())
+    assert scale > 0
+    assert float((got - ref).abs().max()) <= 1e-5 * scale

@@ -65,7 +65,7 @@ def main(argv=None):
     bench = dict(n_heads=32, pts_per_head=3000, ground_pts=104_000, seed=0)
     make_synthetic_colmap_scene(os.path.join(work, "scene"),
                                 width=args.width, height=args.height,
-                                device=dev, **bench)
+                                with_masks=False, device=dev, **bench)
     n = write_stand_in_model(os.path.join(work, "model"),
                              os.path.join(work, "scene"), device=dev, **bench)
     scene = Scene(cfg.ModelParams(source_path=os.path.join(work, "scene"),

@@ -143,7 +143,7 @@ def main(argv=None):
     make_synthetic_colmap_scene(
         os.path.join(work, "scene"), width=args.width, height=args.height,
         n_heads=32, pts_per_head=3000, ground_pts=104_000, seed=0,
-        device=dev)
+        with_masks=False, device=dev)
     scene = Scene(cfg.ModelParams(source_path=os.path.join(work, "scene"),
                                   model_path=os.path.join(work, "model")),
                   device=dev)

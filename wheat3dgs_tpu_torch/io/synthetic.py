@@ -1,13 +1,16 @@
-"""Synthetic wheat-plot dataset generator (COLMAP layout), partial.
+"""Synthetic wheat-plot dataset generator (COLMAP layout).
 
-Counterpart of wheat3dgs_tpu/io/synthetic.py without the masks: writes
-`sparse/0/{cameras,images,points3D}.bin` and `images/plot_<id>_<cam:02d>.png`
-(cam index > 10 => test split). The ground-truth images are rendered with
-the port's own `render_fwd` from a known Gaussian scene (ground plane +
-ellipsoidal "wheat heads"), with override colours at SH degree 0 as the
-JAX generator does. Splat sizes come from a 3-nearest-neighbour distance
-(scipy's cKDTree). Per-head masks and bboxes wait for the segmentation
-slice of the port.
+Counterpart of wheat3dgs_tpu/io/synthetic.py: writes
+`sparse/0/{cameras,images,points3D}.bin`, `images/plot_<id>_<cam:02d>.png`
+(cam index > 10 => test split), per-view SAM-style binary head masks
+`masks/<image>_<k>.png` and YOLO-style bbox tensors `bboxes/<image>.pt`.
+The ground-truth images are rendered with the port's own `render_fwd` from
+a known Gaussian scene (ground plane + ellipsoidal "wheat heads"), with
+override colours at SH degree 0 as the JAX generator does; the masks come
+from the depth-resolved head map of `seg/eval.py::eval_obj_labels`.
+Splat sizes come from a 3-nearest-neighbour distance (scipy's cKDTree).
+The JAX generator renders on its XLA backend at 16-px tiles, the port at
+32-px tiles, so the two packages' masks differ by a few boundary pixels.
 """
 
 from __future__ import annotations
@@ -28,6 +31,9 @@ FOV = 0.9
 CAM_RADIUS = 2.2
 CAM_ELEV_DEG = 40.0
 POINT_JITTER = 0.02     # noise on the COLMAP points3D subsample
+# Detector-visibility gate of the masks (_write_view_masks).
+MIN_VISIBILITY = 0.35   # visible share of a head's amodal footprint
+MIN_MASK_FRAC = 6e-4    # visible share of the image
 
 
 def _scene_points(rng: np.random.Generator, n_heads: int, pts_per_head: int,
@@ -136,6 +142,99 @@ def cam_args(qvec, tvec, proj, fovx, fovy, device):
             t(np.tan(fovy / 2)))
 
 
+def _build_gt_scene(width: int, height: int, n_cams: int, n_heads: int,
+                    pts_per_head: int, ground_pts: int, seed: int, dev):
+    """The ground-truth scene shared by full synthesis and mask-only
+    regeneration: (rng, params, colors, head_id, state, cameras, per-camera
+    render arguments, focal length, raster config)."""
+    from ..models.gaussians import GaussianParams, init_state
+    from ..render.pipeline import adapt_config
+
+    rng, params, colors, head_id = gt_params(n_heads, pts_per_head,
+                                             ground_pts, seed)
+    state = init_state(GaussianParams(**{
+        k: torch.as_tensor(v, device=dev) for k, v in params.items()}),
+        instance_id=head_id)
+    fx = graphics.fov2focal(FOV, width)
+    fovx = graphics.focal2fov(fx, width)
+    fovy = graphics.focal2fov(fx, height)
+    proj = graphics.projection_matrix(0.01, 100.0, fovx, fovy)
+    cams = _ring_cameras(n_cams, radius=CAM_RADIUS, elev_deg=CAM_ELEV_DEG)
+    args = [cam_args(q, t, proj, fovx, fovy, dev) for q, t in cams]
+    config = adapt_config(state, args[0], width, height, cams=args)
+    return rng, params, colors, head_id, state, cams, args, fx, config
+
+
+def _solidify_mask(mask: np.ndarray) -> np.ndarray:
+    """Make a raw alpha > 0.5 instance region SAM-like: morphological
+    closing, hole fill, largest connected component (real SAM emits one
+    solid region per detection; the depth-resolved splat map is speckled at
+    its boundaries)."""
+    from scipy import ndimage
+
+    m = ndimage.binary_closing(mask, structure=np.ones((3, 3)), iterations=2)
+    m = ndimage.binary_fill_holes(m)
+    lab, n = ndimage.label(m)
+    if n > 1:
+        sizes = ndimage.sum_labels(m, lab, index=np.arange(1, n + 1))
+        m = lab == (1 + int(np.argmax(sizes)))
+    return m
+
+
+def _solidify_cropped(mask: np.ndarray) -> np.ndarray:
+    """_solidify_mask of the whole image, computed on the mask's bounding
+    box grown by 4 pixels: the closing reaches 2 pixels past the region and
+    everything beyond stays background, so the result is the same. (Whole-
+    image morphology per head and view would dominate the generator's time
+    at full resolution.)"""
+    ys, xs = np.nonzero(mask)
+    if len(ys) == 0:
+        return mask
+    y0, y1 = max(ys.min() - 4, 0), ys.max() + 5
+    x0, x1 = max(xs.min() - 4, 0), xs.max() + 5
+    out = np.zeros_like(mask)
+    out[y0:y1, x0:x1] = _solidify_mask(mask[y0:y1, x0:x1])
+    return out
+
+
+def _write_view_masks(out_dir: str, image_name: str, state, n_heads: int,
+                      args, width: int, height: int, config) -> None:
+    """Visible-surface per-head masks and bboxes for one view.
+
+    Real SAM masks (reference README.md:36-45) cover only the visible
+    surface of a head, so the masks come from one depth-resolved instance
+    map (the reference eval_obj_labels rule: per pixel, the nearest head
+    with alpha > 0.5 wins), solidified. Detector-visibility gate (a stand-in
+    for YOLO's confidence threshold): a head's mask is written only when its
+    visible area is >= MIN_VISIBILITY of its amodal footprint (the head
+    rendered alone) and >= MIN_MASK_FRAC of the image."""
+    from PIL import Image
+
+    from ..seg.eval import eval_obj_labels
+
+    labels = torch.arange(n_heads + 1, device=state.device)
+    obj_labels = labels[:, None] == state.instance_id[None, :]
+    pred, amodal = eval_obj_labels(state, obj_labels, *args, width=width,
+                                   height=height, config=config,
+                                   with_areas=True)
+    pred, amodal = pred.cpu().numpy(), amodal.cpu().numpy()
+    min_px = max(12, int(MIN_MASK_FRAC * width * height))
+    boxes = []
+    mask_k = 0
+    for h in range(1, n_heads + 1):
+        mask = _solidify_cropped(pred == h)
+        vis = int(mask.sum())
+        if vis < min_px or vis < MIN_VISIBILITY * max(int(amodal[h]), 1):
+            continue
+        ys, xs = np.where(mask)
+        boxes.append([xs.min(), ys.min(), xs.max(), ys.max()])
+        Image.fromarray((mask * 255).astype(np.uint8), mode="L").save(
+            os.path.join(out_dir, "masks", f"{image_name}_{mask_k:03d}.png"))
+        mask_k += 1
+    _save_bboxes(os.path.join(out_dir, "bboxes", image_name + ".pt"),
+                 np.asarray(boxes, np.float32).reshape(-1, 4))
+
+
 def make_synthetic_colmap_scene(
     out_dir: str,
     plot_id: int = 0,
@@ -146,37 +245,29 @@ def make_synthetic_colmap_scene(
     pts_per_head: int = 120,
     ground_pts: int = 900,
     seed: int = 0,
+    with_masks: bool = True,
     device="cuda",
 ) -> dict:
     """Create the dataset on disk; returns a manifest dict. The COLMAP
-    points3D are a jittered subsample of the true points."""
+    points3D are a jittered subsample of the true points. with_masks=False
+    writes empty bbox files and no masks."""
     from PIL import Image
 
     from .. import resolve_device
-    from ..models.gaussians import GaussianParams, init_state
-    from ..render.pipeline import adapt_config, render_fwd
+    from ..render.pipeline import render_fwd
     from . import colmap
 
     dev = resolve_device(device)
-    rng, params, colors, head_id = gt_params(n_heads, pts_per_head,
-                                             ground_pts, seed)
+    (rng, params, colors, head_id, state, cams, args, fx,
+     config) = _build_gt_scene(width, height, n_cams, n_heads, pts_per_head,
+                               ground_pts, seed, dev)
     n = len(colors)
-    state = init_state(GaussianParams(**{
-        k: torch.as_tensor(v, device=dev) for k, v in params.items()}),
-        instance_id=head_id)
     colors_cap = torch.zeros((state.capacity, 3), dtype=torch.float32,
                              device=dev)
     colors_cap[:n] = torch.as_tensor(colors, device=dev)
 
-    fx = graphics.fov2focal(FOV, width)
-    fovx = graphics.focal2fov(fx, width)
-    fovy = graphics.focal2fov(fx, height)
-    proj = graphics.projection_matrix(0.01, 100.0, fovx, fovy)
-    cams = _ring_cameras(n_cams, radius=CAM_RADIUS, elev_deg=CAM_ELEV_DEG)
-    args = [cam_args(q, t, proj, fovx, fovy, dev) for q, t in cams]
-    config = adapt_config(state, args[0], width, height, cams=args)
-
-    os.makedirs(os.path.join(out_dir, "images"), exist_ok=True)
+    for d in ("images", "masks", "bboxes"):
+        os.makedirs(os.path.join(out_dir, d), exist_ok=True)
     sparse = os.path.join(out_dir, "sparse", "0")
     os.makedirs(sparse, exist_ok=True)
 
@@ -194,6 +285,12 @@ def make_synthetic_colmap_scene(
         img = np.clip(out.color.cpu().numpy().transpose(1, 2, 0), 0, 1)
         Image.fromarray((img * 255).astype(np.uint8)).save(
             os.path.join(out_dir, "images", name))
+        if with_masks:
+            _write_view_masks(out_dir, name[:-4], state, n_heads, a, width,
+                              height, config)
+        else:
+            _save_bboxes(os.path.join(out_dir, "bboxes", name[:-4] + ".pt"),
+                         np.zeros((0, 4), np.float32))
         manifest["images"].append(name)
 
     colmap.write_intrinsics_binary(os.path.join(sparse, "cameras.bin"), intr)
@@ -210,6 +307,49 @@ def make_synthetic_colmap_scene(
     return manifest
 
 
+def regen_masks(
+    out_dir: str,
+    plot_id: int = 0,
+    width: int = 160,
+    height: int = 120,
+    n_cams: int = 12,
+    n_heads: int = 4,
+    pts_per_head: int = 120,
+    ground_pts: int = 900,
+    seed: int = 0,
+    device="cuda",
+) -> None:
+    """Rewrite masks/ and bboxes/ of an existing synthetic scene (the same
+    parameters and seed give the same geometry and cameras) without
+    rendering the images again."""
+    from .. import resolve_device
+
+    dev = resolve_device(device)
+    (_, _, _, _, state, _, args, _,
+     config) = _build_gt_scene(width, height, n_cams, n_heads, pts_per_head,
+                               ground_pts, seed, dev)
+    for d in ("masks", "bboxes"):
+        full = os.path.join(out_dir, d)
+        if os.path.isdir(full):
+            for f in os.listdir(full):
+                os.remove(os.path.join(full, f))
+        else:
+            os.makedirs(full)
+    for i, a in enumerate(args):
+        _write_view_masks(out_dir, _image_name(plot_id, i, n_cams)[:-4],
+                          state, n_heads, a, width, height, config)
+
+
+def _save_bboxes(path: str, boxes: np.ndarray) -> None:
+    """YOLO-style boxes as a torch .pt tensor (the reference's format)."""
+    torch.save(torch.from_numpy(boxes), path)
+
+
+def load_bboxes(path: str) -> np.ndarray:
+    """Counterpart of torch.load(cam.bbox_path) (run_3d_seg.py:137)."""
+    return torch.load(path, weights_only=True).numpy()
+
+
 def write_stand_in_model(model_dir: str, scene_dir: str, n_heads: int = 4,
                          pts_per_head: int = 120, ground_pts: int = 900,
                          seed: int = 0, iteration: int = 30_000,
@@ -217,23 +357,26 @@ def write_stand_in_model(model_dir: str, scene_dir: str, n_heads: int = 4,
     """A stand-in "trained" SH-degree-3 model of the generator's scene
     (same arguments and seed): the ground-truth splats with sh_dc =
     rgb_to_sh(colours), seeded N(0, 0.05) f_rest and a seeded per-axis
-    log-scale jitter N(0, 0.3) (anisotropic conics). Writes
-    `point_cloud/iteration_<it>/point_cloud.ply` and `cfg_args` pointing at
-    scene_dir; returns the splat count."""
+    log-scale jitter N(0, 0.3) (anisotropic conics). Like a trained model
+    it carries no head ids (which_object 0, so segmentation starts from
+    none); splat i is point i of the scene's gt_points.npz, whose head_id
+    scores a segmentation. Writes `point_cloud/iteration_<it>/
+    point_cloud.ply` and `cfg_args` pointing at scene_dir; returns the splat
+    count."""
     from .. import config as cfg
     from ..models.gaussians import state_from_numpy
     from ..models.serialization import save_ply
     from ..utils.sh import rgb_to_sh
 
-    _, params, colors, head_id = gt_params(n_heads, pts_per_head,
-                                           ground_pts, seed)
+    _, params, colors, _ = gt_params(n_heads, pts_per_head, ground_pts,
+                                     seed)
     n = len(colors)
     rng = np.random.default_rng(seed + 1)
     params["sh_dc"] = rgb_to_sh(colors).astype(np.float32)
     params["sh_rest"] = rng.normal(0.0, 0.05, (n, 45)).astype(np.float32)
     params["log_scales"] = (params["log_scales"] + rng.normal(
         0.0, 0.3, (n, 3))).astype(np.float32)
-    state = state_from_numpy(params, instance_id=head_id, device=device)
+    state = state_from_numpy(params, device=device)
     save_ply(state, os.path.join(model_dir, "point_cloud",
                                  f"iteration_{iteration}", "point_cloud.ply"))
     cfg.save_cfg_args(model_dir, cfg.ModelParams(source_path=scene_dir,

@@ -11,7 +11,8 @@ rebuilds and concurrent processes never load a half-written file. Nothing
 is built at import time.
 
 `build()` starts one nvcc per missing library and waits for all of them,
-so the kernels compile in parallel.
+so the kernels compile in parallel. `launch()` calls a kernel's C entry
+point on PyTorch's current stream and counts it in `launches`.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -38,7 +41,12 @@ KERNELS = {
     "composite_fwd": [],
     "composite_bwd": [],
     "segsum": [],
+    "scan_probe": [],
 }
+
+# Kernel launches per kernel name (a source may hold several kernels).
+launches = {"decode_cull": 0, "composite_fwd": 0, "composite_train_fwd": 0,
+            "composite_bwd": 0, "segsum": 0, "scan_probe": 0}
 
 _loaded: dict = {}
 
@@ -104,3 +112,29 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(lib_path(name)))
         _loaded[name] = lib
     return lib
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def launch(name: str, argtypes: list, args: tuple, device: torch.device,
+           source: str = "") -> None:
+    """Call `<name>_launch(*args, stream)` from the library built from
+    csrc/<source or name>.cu on the current stream of `device`, raise on a
+    non-zero CUDA error, and count the launch. `argtypes` are the ctypes of
+    `args` (c_void_p for every pointer, so none is cut to 32 bits)."""
+    src = source or name
+    lib = load(src)
+    fn = getattr(lib, f"{name}_launch")
+    if fn.argtypes is None:
+        fn.argtypes = argtypes + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        err = getattr(lib, f"{src}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        raise RuntimeError(f"{name}: CUDA error {rc} ({err(rc).decode()})")
+    launches[name] += 1

@@ -50,6 +50,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from .binning import capped_rect, num_tiles
+from .cuda_build import launch as _launch
+from .cuda_build import launches, reset_launches  # noqa: F401  (re-exported)
 from .projection import Splats2D
 from .raster import ALPHA_MAX, ALPHA_MIN, T_EPS, RasterOut
 
@@ -60,15 +62,6 @@ TILE_PX = 32         # the entry-stream rasterizer's tile side
 MAX_SPAN = 1024      # tiles one splat may cover (center-cropped beyond)
 PLAIN_TILE_BATCH = 64    # tiles per step of the plain compositor
 PLAIN_CHUNK = 128        # entries per step of the plain compositor
-
-launches = {"decode_cull": 0, "composite_fwd": 0, "composite_train_fwd": 0,
-            "composite_bwd": 0, "segsum": 0}
-
-
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
-
 
 def _rank_bits(t_total: int) -> int:
     return 32 - max(1, math.ceil(math.log2(t_total + 1)))
@@ -123,28 +116,6 @@ def _same_cuda_device(*ts: torch.Tensor) -> None:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-
-
-def _launch(name: str, argtypes: list, args: tuple, device: torch.device,
-            source: Optional[str] = None) -> None:
-    """Call `<name>_launch(*args, stream)` from the library built from
-    csrc/<source or name>.cu on the current stream of `device`, raise on a
-    non-zero CUDA error, and count the launch."""
-    from . import cuda_build
-
-    src = source or name
-    lib = cuda_build.load(src)
-    fn = getattr(lib, f"{name}_launch")
-    if fn.argtypes is None:
-        fn.argtypes = argtypes + [_P]
-        fn.restype = ctypes.c_int
-    rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        err = getattr(lib, f"{src}_error_string")
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        raise RuntimeError(f"{name}: CUDA error {rc} ({err(rc).decode()})")
-    launches[name] += 1
 
 
 # --- decode_cull -----------------------------------------------------------

@@ -83,6 +83,13 @@ class Scene:
         return (c.w2c[idx], c.full_proj[idx], c.cam_center[idx],
                 c.tanfovx[idx], c.tanfovy[idx])
 
+    def cam_stack(self, split: str):
+        """The split's cameras as stacked tensors (w2c, full_proj,
+        cam_center, tanfovx, tanfovy), each with a leading view axis."""
+        group = self.data.train if split == "train" else self.data.test
+        c = group.cameras
+        return (c.w2c, c.full_proj, c.cam_center, c.tanfovx, c.tanfovy)
+
     def gt_image(self, split: str, idx: int) -> torch.Tensor:
         """(3, H, W) float32 ground-truth image on the scene's device."""
         group = self.data.train if split == "train" else self.data.test
