@@ -7,7 +7,7 @@ Needs one CUDA card and nvcc; exits non-zero when either is missing, and
 when run outside a checkout of the repo. Phases, each reported on a line:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the four CUDA sources of the five kernels from csrc/, compiled
+2. build: the five CUDA sources of the six kernels from csrc/, compiled
    in parallel;
 3. data: the bench's synthetic plot (32 heads x 3000 + 104,000 ground =
    200,000 splats, 12 ring views at 1600x1200 -> 10 train / 2 test) made
@@ -24,7 +24,9 @@ when run outside a checkout of the repo. Phases, each reported on a line:
 6. train kernels: the training kernels against their plain versions on
    train view 0 of the stand-in model under the L1 + SSIM loss against
    that view's image (composite_train_fwd, composite_bwd, segsum within
-   the stated bounds), the end-to-end parameter gradients of the kernel
+   the stated bounds; composite_bwd and segsum bit-identical over two
+   launches), composite_bwd's live and walked (warp, entry) steps counted
+   from the plain replay, the end-to-end parameter gradients of the kernel
    path against the all-plain path (within 2% of each leaf's max |g|),
    each kernel, its plain version and, for segsum, torch.segment_reduce
    timed with CUDA events;
@@ -37,9 +39,10 @@ when run outside a checkout of the repo. Phases, each reported on a line:
    with no densify event inside, on the host clock;
 9. segmentation kernels, on train view 0 of the stand-in model: the lift's
    kernels at 9 value rows (depth + 8 label channels: composite_train_fwd,
-   composite_bwd, segsum) against their plain versions and its (8, N)
-   counts against the all-plain path; composite_fwd alpha-only (0 value
-   rows) at a subset budget and with depth (1 value row), all timed;
+   composite_bwd, segsum) against their plain versions (and as in phase 6
+   for composite_bwd and segsum) and its (8, N) counts against the
+   all-plain path; composite_fwd alpha-only (0 value rows) at a subset
+   budget and with depth (1 value row), all timed;
 10. segmentation path: `apps/run_3d_seg_app.main` on the bench scene and
    the stand-in model with the launch counters reset just before and read
    just after: the artifact tree, the head ids in the 2DSeg maps, the
@@ -376,6 +379,57 @@ def plain_kernels():
             setattr(CR, k, fn)
 
 
+def check_repeatable(name: str, kernel, args):
+    """kernel(*args) twice: the outputs must be bit-identical (the kernel
+    sums in a fixed order and uses no atomics on its output)."""
+    import torch
+
+    first = kernel(*args)
+    again = kernel(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(first, again):
+        bad = int((first != again).sum())
+        fail(f"{name}: two launches on the same inputs differ in {bad} "
+             "values")
+    return first
+
+
+def check_segsum(rows, plan, where: str) -> dict:
+    """segsum of the composite_bwd rows against its plain version (within
+    SEGSUM_REL of each column's max, two launches bit-identical), timed
+    beside torch.segment_reduce of the same rows. The result carries the
+    plain output ("ref") and its column scale ("scale")."""
+    import torch
+
+    from wheat3dgs_tpu_torch.ops import cuda_raster as CR
+
+    sargs = (rows, plan.seg_start, plan.seg_end)
+    out_k = check_repeatable("segsum" + where, CR.segsum, sargs)
+    out_p, seg_plain_ms = timed_once(lambda: CR.segsum_plain(*sargs))
+    scale = out_p.abs().amax(dim=0).clamp(min=1e-30)
+    seg_rel = float(((out_k - out_p).abs() / scale).max())
+    if seg_rel > SEGSUM_REL:
+        fail(f"segsum{where} differs from its plain version: {seg_rel} of "
+             f"the column max (bound {SEGSUM_REL})")
+    n, cols = out_k.shape
+    used = int(plan.seg_end[-1])
+    offsets = torch.cat([plan.seg_start, plan.seg_end[-1:]]).long()
+    seg = dict(ms=cuda_time_ms(lambda: CR.segsum(*sargs), 50),
+               plain_ms=seg_plain_ms,
+               library_ms=cuda_time_ms(lambda: torch.segment_reduce(
+                   rows[:used], "sum", offsets=offsets), 50),
+               max_abs_err=float((out_k - out_p).abs().max()),
+               max_rel_err_of_column_max=seg_rel, bound_rel=SEGSUM_REL,
+               repeat_bit_equal=True,
+               shape={"slots_summed": used, "ranks": n, "columns": cols},
+               ref=out_p, scale=scale)
+    # Reported, not gated: a time is no correctness check.
+    seg["faster_than_library"] = seg["ms"] <= seg["library_ms"]
+    seg["bound_ms"], seg["bound_by"] = bound(
+        used * cols * 4 + n * 8 + n * cols * 4, used * cols)
+    return seg
+
+
 def check_train_kernels(scene):
     """Phase 6: the training kernels against their plain versions on train
     view 0 of the stand-in model, under the L1 + SSIM loss."""
@@ -411,7 +465,7 @@ def check_train_kernels(scene):
         feat = CR.entry_features(splats, plan.order, True, True)
     nv = feat.shape[1] - 6
     cols = 6 + nv
-    e, n = skeys.shape[0], feat.shape[0]
+    e = skeys.shape[0]
     entries = int(alive)
 
     # composite_train_fwd
@@ -452,7 +506,7 @@ def check_train_kernels(scene):
     # composite_bwd
     bargs = (skeys, perm, starts, ends, feat, img_k, stop_k, grad,
              plan.rank_bits, w, h)
-    rows_k = CR.composite_bwd(*bargs)
+    rows_k = check_repeatable("composite_bwd", CR.composite_bwd, bargs)
     rows_p, bwd_plain_ms = timed_once(lambda: CR.composite_bwd_plain(*bargs))
     if not bool(torch.isfinite(rows_k).all()):
         fail("composite_bwd produced non-finite values")
@@ -466,13 +520,18 @@ def check_train_kernels(scene):
     ty = torch.arange(h, device=DEVICE)[:, None] // CR.TILE_PX
     tx = torch.arange(w, device=DEVICE)[None, :] // CR.TILE_PX
     bwd_visited = int((stop_k.long() - starts[ty * tiles_x + tx]).sum())
+    live_steps, walked_steps = CR.bwd_warp_steps(
+        skeys, starts, ends, feat, stop_k, plan.rank_bits, w, h)
     bwd = dict(
         ms=cuda_time_ms(lambda: CR.composite_bwd(*bargs), 20),
         plain_ms=bwd_plain_ms,
         max_abs_err=float((rows_k - rows_p).abs().max()),
         max_rel_err_of_column_max=bwd_rel, bound_rel=BWD_REL,
+        repeat_bit_equal=True,
         shape={"slots": e, "entries": entries, "columns": cols,
-               "visited_pairs": bwd_visited, "weighted_pairs": weighted})
+               "visited_pairs": bwd_visited, "weighted_pairs": weighted,
+               "live_warp_steps": live_steps,
+               "walked_warp_steps": walked_steps})
     # Keys + permutation of the live entries, the feature table, image,
     # cotangent and stop per pixel, the (E, cols) row write; the forward's
     # replay per visited pair, ~36 + 4 nv ops per weighted pair (u, the
@@ -483,29 +542,13 @@ def check_train_kernels(scene):
         bwd_visited * 14 + weighted * (36 + 4 * nv))
 
     # segsum
-    sargs = (rows_k, plan.seg_start, plan.seg_end)
-    out_k = CR.segsum(*sargs)
-    out_p, seg_plain_ms = timed_once(lambda: CR.segsum_plain(*sargs))
-    scale = out_p.abs().amax(dim=0).clamp(min=1e-30)
-    seg_rel = float(((out_k - out_p).abs() / scale).max())
-    if seg_rel > SEGSUM_REL:
-        fail(f"segsum differs from its plain version: {seg_rel} of the "
-             f"column max (bound {SEGSUM_REL})")
-    used = int(plan.seg_end[-1])
-    offsets = torch.cat([plan.seg_start, plan.seg_end[-1:]]).long()
-    lib_out = torch.segment_reduce(rows_k[:used], "sum", offsets=offsets)
-    lib_rel = float(((lib_out - out_p).abs() / scale).max())
-    seg = dict(
-        ms=cuda_time_ms(lambda: CR.segsum(*sargs), 50),
-        plain_ms=seg_plain_ms,
-        library_ms=cuda_time_ms(lambda: torch.segment_reduce(
-            rows_k[:used], "sum", offsets=offsets), 50),
-        library_rel_err=lib_rel,
-        max_abs_err=float((out_k - out_p).abs().max()),
-        max_rel_err_of_column_max=seg_rel, bound_rel=SEGSUM_REL,
-        shape={"slots_summed": used, "ranks": n, "columns": cols})
-    seg["bound_ms"], seg["bound_by"] = bound(
-        used * cols * 4 + n * 8 + n * cols * 4, used * cols)
+    seg = check_segsum(rows_k, plan, "")
+    lib_out = torch.segment_reduce(rows_k[:seg["shape"]["slots_summed"]],
+                                   "sum", offsets=torch.cat([
+                                       plan.seg_start,
+                                       plan.seg_end[-1:]]).long())
+    seg["library_rel_err"] = float(
+        ((lib_out - seg.pop("ref")).abs() / seg.pop("scale")).max())
 
     # End-to-end parameter gradients: kernels against the all-plain path.
     def leaf_grads():
@@ -739,7 +782,7 @@ def check_seg_kernels(scene, scene_dir: str):
     nv = feat.shape[1] - 6
     if nv != 9:
         fail(f"the lift composites {nv} value rows, expected 9")
-    cols, e, n, entries = 6 + nv, skeys.shape[0], feat.shape[0], int(alive)
+    cols, e, entries = 6 + nv, skeys.shape[0], int(alive)
 
     fargs = (skeys, starts, ends, feat, plan.rank_bits, w, h)
     img_k, stop_k = CR.composite_train_fwd(*fargs)
@@ -770,7 +813,8 @@ def check_seg_kernels(scene, scene_dir: str):
     grad[2:] = planes
     bargs = (skeys, perm, starts, ends, feat, img_k, stop_k, grad,
              plan.rank_bits, w, h)
-    rows_k = CR.composite_bwd(*bargs)
+    rows_k = check_repeatable("composite_bwd at nv=9", CR.composite_bwd,
+                              bargs)
     rows_p, bwd_plain_ms = timed_once(lambda: CR.composite_bwd_plain(*bargs))
     col_max = rows_p.abs().amax(dim=0).clamp(min=1e-30)
     bwd_rel = float(((rows_k - rows_p).abs() / col_max).max())
@@ -781,36 +825,24 @@ def check_seg_kernels(scene, scene_dir: str):
     ty = torch.arange(h, device=DEVICE)[:, None] // CR.TILE_PX
     tx = torch.arange(w, device=DEVICE)[None, :] // CR.TILE_PX
     bwd_visited = int((stop_k.long() - starts[ty * tiles_x + tx]).sum())
+    live_steps, walked_steps = CR.bwd_warp_steps(
+        skeys, starts, ends, feat, stop_k, plan.rank_bits, w, h)
     bwd = dict(value_rows=nv, ms=cuda_time_ms(
         lambda: CR.composite_bwd(*bargs), 20), plain_ms=bwd_plain_ms,
         max_abs_err=float((rows_k - rows_p).abs().max()),
-        max_rel_err_of_column_max=bwd_rel,
+        max_rel_err_of_column_max=bwd_rel, repeat_bit_equal=True,
         shape={"slots": e, "entries": entries, "columns": cols,
-               "visited_pairs": bwd_visited, "weighted_pairs": weighted})
+               "visited_pairs": bwd_visited, "weighted_pairs": weighted,
+               "live_warp_steps": live_steps,
+               "walked_warp_steps": walked_steps})
     bwd["bound_ms"], bwd["bound_by"] = bound(
         entries * 16 + plan.t_total * 8 + feat.numel() * 4
         + (2 * (1 + nv) * 4 + 4) * w * h + e * cols * 4,
         bwd_visited * 14 + weighted * (36 + 4 * nv))
 
-    sargs = (rows_k, plan.seg_start, plan.seg_end)
-    out_k = CR.segsum(*sargs)
-    out_p, seg_plain_ms = timed_once(lambda: CR.segsum_plain(*sargs))
-    scale = out_p.abs().amax(dim=0).clamp(min=1e-30)
-    seg_rel = float(((out_k - out_p).abs() / scale).max())
-    if seg_rel > SEGSUM_REL:
-        fail(f"segsum at 15 columns differs from its plain version: "
-             f"{seg_rel} of the column max (bound {SEGSUM_REL})")
-    used = int(plan.seg_end[-1])
-    offsets = torch.cat([plan.seg_start, plan.seg_end[-1:]]).long()
-    seg = dict(value_rows=nv, ms=cuda_time_ms(lambda: CR.segsum(*sargs), 50),
-               plain_ms=seg_plain_ms,
-               library_ms=cuda_time_ms(lambda: torch.segment_reduce(
-                   rows_k[:used], "sum", offsets=offsets), 50),
-               max_abs_err=float((out_k - out_p).abs().max()),
-               max_rel_err_of_column_max=seg_rel,
-               shape={"slots_summed": used, "ranks": n, "columns": cols})
-    seg["bound_ms"], seg["bound_by"] = bound(
-        used * cols * 4 + n * 8 + n * cols * 4, used * cols)
+    seg = check_segsum(rows_k, plan, " at 15 columns")
+    del seg["ref"], seg["scale"]
+    seg["value_rows"] = nv
 
     # The lifted counts: kernels against the all-plain path.
     lift_args = (st, *cam, bits8)

@@ -66,7 +66,7 @@ def test_render_sets_refuses_without_card(tmp_path):
 
 
 @pytest.mark.parametrize("app", ["run_3d_seg_app", "eval_wheatgs_app",
-                                 "prof_scan"])
+                                 "prof_scan", "profile_backward"])
 def test_seg_and_probe_entry_points_refuse_without_card(tmp_path, app):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
@@ -75,7 +75,8 @@ def test_seg_and_probe_entry_points_refuse_without_card(tmp_path, app):
     mod = importlib.import_module(f"wheat3dgs_tpu_torch.apps.{app}")
     argv = {"run_3d_seg_app": ["-s", str(tmp_path), "-m", str(tmp_path)],
             "eval_wheatgs_app": ["-m", str(tmp_path)],
-            "prof_scan": []}[app]
+            "prof_scan": [],
+            "profile_backward": ["--out", str(tmp_path)]}[app]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mod.main(argv)
 

@@ -18,7 +18,8 @@ float64 running sum); end-to-end gradients within 2% of each leaf's max
 |g|, the bound of tests/test_pallas.py. The segmentation lift's shape (9
 value rows: depth + 8 label channels) is held to the same bounds. The scan
 probe within 1e-5 of the block's max |value| (float32 sums in another
-order, renormalised every step).
+order, renormalised every step). composite_bwd and segsum sum in a fixed
+order, so two launches on the same inputs are bit-identical.
 """
 
 import contextlib
@@ -39,10 +40,13 @@ def _card():
     return torch.device("cuda")
 
 
-def _splats(dev, n, width, height, seed, channels=3):
-    """Random anisotropic splats seen by a look-at camera 4 units away."""
+def _splats(dev, n, width, height, seed, channels=3, big=0):
+    """Random anisotropic splats seen by a look-at camera 4 units away; the
+    first `big` of them are 5x larger."""
     rng = np.random.default_rng(seed)
     q = rng.normal(size=(n, 4)).astype(np.float32)
+    scale = rng.uniform(0.01, 0.2, (n, 3))
+    scale[:big] *= 5.0
     fx = width / (2 * math.tan(0.4))
     fovy = 2 * math.atan(height / (2 * fx))
     w2c = np.eye(4, dtype=np.float32)
@@ -56,8 +60,7 @@ def _splats(dev, n, width, height, seed, channels=3):
 
     return project_gaussians(
         t(rng.normal(size=(n, 3)) * 0.8),
-        t(rng.uniform(0.01, 0.2, (n, 3))), t(q / np.linalg.norm(q, axis=1,
-                                                               keepdims=True)),
+        t(scale), t(q / np.linalg.norm(q, axis=1, keepdims=True)),
         t(rng.uniform(0.05, 0.95, n)), t(w2c), t(proj @ w2c),
         t([0.0, 0.0, -4.0]), math.tan(0.4), math.tan(fovy / 2), width,
         height, colors=t(rng.uniform(0, 1, (n, channels))))
@@ -99,13 +102,14 @@ def test_composite_fwd_kernel_matches_plain(with_color, with_depth):
     torch.testing.assert_close(img, ref, atol=1e-4, rtol=1e-4)
 
 
-def _stream(dev, n=3000, width=131, height=77, seed=2, channels=3):
-    s = _splats(dev, n, width, height, seed=seed, channels=channels)
+def _stream(dev, n=3000, width=131, height=77, seed=2, channels=3,
+            with_color=True, with_depth=True, big=0):
+    s = _splats(dev, n, width, height, seed=seed, channels=channels, big=big)
     plan = CR.alloc_prologue(s, width, height, n * 16)
     key, _ = CR.decode_cull(plan)
     skeys, starts, ends, perm = CR.sorted_stream(
         key, plan.t_total, plan.rank_bits, with_perm=True)
-    feat = CR.entry_features(s, plan.order, True, True)
+    feat = CR.entry_features(s, plan.order, with_color, with_depth)
     return plan, skeys, starts, ends, perm, feat
 
 
@@ -127,41 +131,102 @@ def test_composite_train_fwd_kernel_matches_plain(channels):
     assert int((stop != stop_p).sum()) <= 0.001 * width * height
 
 
+# Value rows -> (colour channels, with colour, with depth) of the table.
+NV_LAYOUT = {0: (3, False, False), 1: (3, False, True), 4: (3, True, True),
+             9: (8, True, True)}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("channels", [3, 8])
-def test_composite_bwd_kernel_matches_plain(channels):
+@pytest.mark.parametrize("nv", sorted(NV_LAYOUT))
+def test_composite_bwd_kernel_matches_plain(nv):
     dev = _card()
     width, height = 131, 77
-    plan, skeys, starts, ends, perm, feat = _stream(dev, channels=channels)
+    channels, with_color, with_depth = NV_LAYOUT[nv]
+    # 40 large splats: some tiles walk several 64-entry batches.
+    plan, skeys, starts, ends, perm, feat = _stream(
+        dev, channels=channels, with_color=with_color,
+        with_depth=with_depth, big=40)
+    assert feat.shape[1] == 6 + nv
     img, stop = CR.composite_train_fwd(skeys, starts, ends, feat,
                                        plan.rank_bits, width, height)
+    tiles_x = plan.tiles_x
+    ty = torch.arange(height, device=dev)[:, None] // CR.TILE_PX
+    tx = torch.arange(width, device=dev)[None, :] // CR.TILE_PX
+    walked = stop.long() - starts[ty * tiles_x + tx]
+    assert int(walked.max()) > 3 * 64
     g = torch.as_tensor(np.random.default_rng(0).normal(
         size=img.shape).astype(np.float32), device=dev)
     args = (skeys, perm, starts, ends, feat, img, stop, g, plan.rank_bits,
             width, height)
     before = CR.launches["composite_bwd"]
     rows = CR.composite_bwd(*args)
+    again = CR.composite_bwd(*args)
     ref = CR.composite_bwd_plain(*args)
     torch.cuda.synchronize()
-    assert CR.launches["composite_bwd"] == before + 1
+    assert CR.launches["composite_bwd"] == before + 2
     assert rows.shape == ref.shape == (skeys.shape[0], feat.shape[1])
+    assert torch.equal(rows, again)
     scale = ref.abs().amax(dim=0)
     assert bool((scale > 0).all())
     assert float(((rows - ref).abs() / scale).max()) < 1e-3
 
 
+def segment_layout(kind: str, seed: int = 0):
+    """(seg_start, seg_end) int32 numpy bounds of 1000 depth ranks tiling
+    [0, min(total, E)) as alloc_prologue makes them, and the slot count E.
+    Kinds: "long" (a dozen 1024-slot segments and some of 17-400 slots
+    among short ones), "empty_runs" (runs of empty ranks, among them two
+    whole blocks of the kernel's 128 ranks), "clipped" (a budget E two
+    thirds of the demand: the ranks past it are empty at E, one is cut
+    short), "unaligned" (every 128-rank block's span starts 3 slots past a
+    4-slot boundary, so off 16 bytes at any column count)."""
+    rng = np.random.default_rng(seed)
+    n = 1000
+    counts = rng.integers(0, 8, n)
+    if kind == "long":
+        counts[rng.choice(n, 12, replace=False)] = 1024
+        counts[rng.choice(n, 20, replace=False)] = rng.integers(17, 400, 20)
+    elif kind == "empty_runs":
+        for a in rng.choice(n - 300, 6, replace=False):
+            counts[a:a + rng.integers(30, 300)] = 0
+        counts[256:512] = 0
+    elif kind == "unaligned":
+        for b in range(128, n, 128):
+            counts[b - 1] += (3 - int(counts[:b].sum())) % 4
+    elif kind != "clipped":
+        raise ValueError(kind)
+    offs = np.cumsum(counts) - counts
+    total = int(counts.sum())
+    e = total * 2 // 3 if kind == "clipped" else total + 100
+    return (np.minimum(offs, e).astype(np.int32),
+            np.minimum(offs + counts, e).astype(np.int32), e)
+
+
+SEGMENT_KINDS = ("long", "empty_runs", "clipped", "unaligned")
+
+
 @pytest.mark.gpu
-def test_segsum_kernel_matches_plain():
+@pytest.mark.parametrize("cols", [1, 10, 15])
+@pytest.mark.parametrize("kind", ("plan",) + SEGMENT_KINDS)
+def test_segsum_kernel_matches_plain(kind, cols):
     dev = _card()
-    plan, *_ = _stream(dev)
-    e = plan.owner.shape[0]
+    if kind == "plan":
+        plan, *_ = _stream(dev)
+        seg_start, seg_end = plan.seg_start, plan.seg_end
+        e = plan.owner.shape[0]
+    else:
+        a, b, e = segment_layout(kind)
+        seg_start = torch.as_tensor(a, device=dev)
+        seg_end = torch.as_tensor(b, device=dev)
     vals = torch.as_tensor(np.random.default_rng(1).normal(
-        size=(e, 10)).astype(np.float32), device=dev)
+        size=(e, cols)).astype(np.float32), device=dev)
     before = CR.launches["segsum"]
-    out = CR.segsum(vals, plan.seg_start, plan.seg_end)
-    ref = CR.segsum_plain(vals, plan.seg_start, plan.seg_end)
+    out = CR.segsum(vals, seg_start, seg_end)
+    again = CR.segsum(vals, seg_start, seg_end)
+    ref = CR.segsum_plain(vals, seg_start, seg_end)
     torch.cuda.synchronize()
-    assert CR.launches["segsum"] == before + 1
+    assert CR.launches["segsum"] == before + 2
+    assert torch.equal(out, again)
     scale = ref.abs().amax(dim=0)
     assert float(((out - ref).abs() / scale).max()) < 1e-5
 

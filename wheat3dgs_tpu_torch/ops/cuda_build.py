@@ -17,6 +17,7 @@ point on PyTorch's current stream and counts it in `launches`.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -36,10 +37,12 @@ COMMON_FLAGS = ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
                 "-Xptxas", "-v"]
 # Per-source extra flags. decode_cull's tile cull must round exactly as the
 # plain version's separate float32 ops do: no FMA contraction.
+# composite_bwd runs two 1024-thread blocks per SM, so 32 registers a
+# thread: at ptxas's default register-usage level it spills, at 2 it fits.
 KERNELS = {
     "decode_cull": ["-fmad=false"],
     "composite_fwd": [],
-    "composite_bwd": [],
+    "composite_bwd": ["-Xptxas", "--register-usage-level=2"],
     "segsum": [],
     "scan_probe": [],
 }
@@ -112,6 +115,23 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(lib_path(name)))
         _loaded[name] = lib
     return lib
+
+
+@contextlib.contextmanager
+def sources(csrc):
+    """Build and launch the kernels from another `csrc/` directory (another
+    tree's, with the same C entry points) for the duration, so that two
+    trees' kernels can be timed in one process on the same inputs."""
+    global CSRC
+    saved, saved_loaded = CSRC, dict(_loaded)
+    CSRC = Path(csrc).resolve()
+    _loaded.clear()
+    try:
+        yield
+    finally:
+        CSRC = saved
+        _loaded.clear()
+        _loaded.update(saved_loaded)
 
 
 def reset_launches() -> None:

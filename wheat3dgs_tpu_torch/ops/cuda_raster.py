@@ -496,6 +496,42 @@ def composite_bwd_plain(skeys, perm, starts, ends, feat_r, img, stop, grad,
     return out
 
 
+def bwd_warp_steps(skeys, starts, ends, feat_r, stop, rank_bits: int,
+                   width: int, height: int):
+    """The backward replay's work per warp (one 32-pixel row of a tile),
+    counted with the plain replay's alpha: (live, walked) = the (warp,
+    entry) steps in which some lane of the warp has a live pair before its
+    stop (the steps that run a reduction), and the steps up to the largest
+    stop among the warp's pixels."""
+    dev = feat_r.device
+    tiles_x, tiles_y = num_tiles(width, height, TILE_PX)
+    t_total = tiles_x * tiles_y
+    rank = skeys & ((1 << rank_bits) - 1)
+    # Pixels outside the image get stop 0: no entry is ever before it.
+    stop_t = _to_tiles(stop[None].long(), tiles_x, tiles_y)[:, 0]
+    lane = torch.arange(PLAIN_CHUNK, device=dev)
+    live = torch.zeros((), dtype=torch.int64, device=dev)
+    walked = torch.zeros((), dtype=torch.int64, device=dev)
+    for b0 in range(0, t_total, PLAIN_TILE_BATCH):
+        tids = torch.arange(b0, min(b0 + PLAIN_TILE_BATCH, t_total),
+                            device=dev)
+        s = starts[tids].long()
+        en = ends[tids].long()
+        st = stop_t[tids]                                      # (B, P)
+        warp_stop = st.reshape(len(tids), TILE_PX, TILE_PX).amax(dim=2)
+        walked += (warp_stop - s[:, None]).clamp(min=0).sum()
+        longest = int((st.amax(dim=1) - s).max())
+        px, py = _batch_pixels(tids, tiles_x)
+        for c0 in range(0, longest, PLAIN_CHUNK):
+            pos = s[:, None] + c0 + lane                       # (B, K)
+            valid = pos < en[:, None]
+            alpha = _chunk_alpha(feat_r, rank, pos, valid, px, py)[-1]
+            hit = (alpha > 0) & (pos[:, None, :] < st[:, :, None])
+            live += hit.reshape(len(tids), TILE_PX, TILE_PX, -1).any(
+                dim=2).sum()
+    return int(live), int(walked)
+
+
 def composite_bwd(skeys, perm, starts, ends, feat_r, img, stop, grad,
                   rank_bits: int, width: int, height: int):
     """The training forward's inputs and residuals ((1 + nv, H, W) image,
@@ -539,7 +575,9 @@ def segsum_plain(vals, seg_start, seg_end):
 
 def segsum(vals, seg_start, seg_end):
     """(E, C) float32 slot rows, (N,) int32 segment bounds -> (N, C) float32
-    with row r = sum of vals[seg_start[r]:seg_end[r]]."""
+    with row r = sum of vals[seg_start[r]:seg_end[r]]. The kernel takes the
+    segments in rank order, none overlapping the next (as alloc_prologue
+    makes them)."""
     if vals.device.type == "cpu":
         return segsum_plain(vals, seg_start, seg_end)
     _cuda_only("segsum", vals)
@@ -551,6 +589,8 @@ def segsum(vals, seg_start, seg_end):
     _check(vals, "vals", torch.float32, (e, cols))
     _check(seg_start, "seg_start", torch.int32, (n,))
     _check(seg_end, "seg_end", torch.int32, (n,))
+    if vals.data_ptr() % 16:
+        raise ValueError("vals: must be 16-byte aligned")
     out = torch.empty((n, cols), dtype=torch.float32, device=vals.device)
     _launch("segsum", [_P, _P, _P, _I, _I, _P],
             (vals.data_ptr(), seg_start.data_ptr(), seg_end.data_ptr(), n,
