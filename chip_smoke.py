@@ -16,7 +16,8 @@ when run outside a checkout of the repo. Phases, each reported on a line:
    jitter);
 4. kernels: the serving kernels against their plain PyTorch versions on
    one full-width view (decode_cull keys and alive count exactly equal;
-   composite_fwd within the stated tolerance), both timed with CUDA events;
+   composite_fwd within the stated tolerance and bit-identical over two
+   launches), both timed with CUDA events;
 5. serving path: `apps/render_sets.main` over both splits with the launch
    counters reset just before and read just after, the PNG trees checked,
    every view's entries_total checked against its budget, one view checked
@@ -24,8 +25,8 @@ when run outside a checkout of the repo. Phases, each reported on a line:
 6. train kernels: the training kernels against their plain versions on
    train view 0 of the stand-in model under the L1 + SSIM loss against
    that view's image (composite_train_fwd, composite_bwd, segsum within
-   the stated bounds; composite_bwd and segsum bit-identical over two
-   launches), composite_bwd's live and walked (warp, entry) steps counted
+   the stated bounds; each bit-identical over two launches),
+   composite_bwd's live and walked (warp, entry) steps counted
    from the plain replay, the end-to-end parameter gradients of the kernel
    path against the all-plain path (within 2% of each leaf's max |g|),
    each kernel, its plain version and, for segsum, torch.segment_reduce
@@ -42,7 +43,9 @@ when run outside a checkout of the repo. Phases, each reported on a line:
    composite_bwd, segsum) against their plain versions (and as in phase 6
    for composite_bwd and segsum) and its (8, N) counts against the
    all-plain path; composite_fwd alpha-only (0 value rows) at a subset
-   budget and with depth (1 value row), all timed;
+   budget, with depth (1 value row) and on an all-empty frame (an all-zero
+   image), all timed; the forward compositors' sub-tile cull counted at
+   every forward shape of phases 4, 6 and 9 (cuda_raster.fwd_block_steps);
 10. segmentation path: `apps/run_3d_seg_app.main` on the bench scene and
    the stand-in model with the launch counters reset just before and read
    just after: the artifact tree, the head ids in the 2DSeg maps, the
@@ -110,6 +113,9 @@ SEG_MEDIAN_PURITY = 0.5
 # 7.35 dB, 17.32 -> 24.67).
 PSNR_RISE_DB = 3.0
 
+# Card clock cycles of the spin that timed launches queue behind.
+SPIN_CYCLES = 20_000_000
+
 BENCH = dict(width=1600, height=1200, n_cams=12, n_heads=32,
              pts_per_head=3000, ground_pts=104_000, seed=0)
 ITERATION = 30_000
@@ -139,12 +145,18 @@ def smi_line() -> str:
 
 
 def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """The card's time per call of fn, with CUDA events around `reps`
+    calls queued behind a spin of ~10 ms on the card, so that the events
+    time the card's work and not the host's enqueueing (a short kernel's
+    Python wrapper takes tens of microseconds)."""
     import torch
 
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -209,7 +221,7 @@ def check_kernels(scene):
                                            plan.rank_bits)
     feat_r = CR.entry_features(splats, plan.order, True, True)
     cargs = (skeys, starts, ends, feat_r, plan.rank_bits, w, h)
-    img_k = CR.composite_fwd(*cargs)
+    img_k = check_repeatable("composite_fwd", CR.composite_fwd, cargs)
     img_p, (visited, weighted) = CR.composite_fwd_plain(*cargs,
                                                         with_counts=True)
     torch.cuda.synchronize()
@@ -228,9 +240,11 @@ def check_kernels(scene):
                               warmup=1),
         max_abs_err=float(err.max()),
         tolerance={"atol": COMPOSITE_ATOL, "rtol": COMPOSITE_RTOL},
+        repeat_bit_equal=True,
         shape={"tiles": plan.t_total, "entries": int(alive_k),
                "value_rows": nv, "visited_pairs": visited,
-               "weighted_pairs": weighted})
+               "weighted_pairs": weighted},
+        cull=fwd_cull(cargs))
     # Keys of the live segments, tile bounds, the feature table and the
     # image; 14 flops per visited (pixel, entry) pair, 4 + 2 (1 + nv) more
     # per weighted pair (transcendentals counted as one).
@@ -380,18 +394,33 @@ def plain_kernels():
 
 
 def check_repeatable(name: str, kernel, args):
-    """kernel(*args) twice: the outputs must be bit-identical (the kernel
-    sums in a fixed order and uses no atomics on its output)."""
+    """kernel(*args) twice: the outputs (a tensor or a tuple of them) must
+    be bit-identical (the kernel sums in a fixed order and uses no atomics
+    on its output)."""
     import torch
 
     first = kernel(*args)
     again = kernel(*args)
     torch.cuda.synchronize()
-    if not torch.equal(first, again):
-        bad = int((first != again).sum())
-        fail(f"{name}: two launches on the same inputs differ in {bad} "
-             "values")
+    pairs = zip(first, again) if isinstance(first, tuple) else [(first,
+                                                                 again)]
+    for a, b in pairs:
+        if not torch.equal(a, b):
+            fail(f"{name}: two launches on the same inputs differ in "
+                 f"{int((a != b).sum())} values")
     return first
+
+
+def fwd_cull(cargs) -> dict:
+    """The forward compositors' sub-tile cull on these inputs, counted by
+    its plain mirror (cuda_raster.fwd_block_steps): (sub-tile, entry) pairs
+    kept against tested, and the (pixel, entry) pairs the kernels' pixels
+    walk among the kept entries."""
+    from wheat3dgs_tpu_torch.ops import cuda_raster as CR
+
+    kept, tested, visited = CR.fwd_block_steps(*cargs)
+    return {"subtile_pairs_kept": kept, "subtile_pairs_tested": tested,
+            "kernel_visited_pairs": visited}
 
 
 def check_segsum(rows, plan, where: str) -> dict:
@@ -470,7 +499,8 @@ def check_train_kernels(scene):
 
     # composite_train_fwd
     fargs = (skeys, starts, ends, feat, plan.rank_bits, w, h)
-    img_k, stop_k = CR.composite_train_fwd(*fargs)
+    img_k, stop_k = check_repeatable("composite_train_fwd",
+                                     CR.composite_train_fwd, fargs)
     (img_p, stop_p), fwd_plain_ms = timed_once(
         lambda: CR.composite_train_fwd_plain(*fargs))
     if not bool(torch.isfinite(img_k).all()):
@@ -490,8 +520,10 @@ def check_train_kernels(scene):
         plain_ms=fwd_plain_ms, max_abs_err=float(err.max()),
         stop_pixels_differing=stop_off,
         tolerance={"atol": COMPOSITE_ATOL, "rtol": COMPOSITE_RTOL},
+        repeat_bit_equal=True,
         shape={"tiles": plan.t_total, "entries": entries, "value_rows": nv,
-               "visited_pairs": visited, "weighted_pairs": weighted})
+               "visited_pairs": visited, "weighted_pairs": weighted},
+        cull=fwd_cull(fargs))
     fwd["bound_ms"], fwd["bound_by"] = bound(
         entries * 8 + plan.t_total * 8 + feat.numel() * 4
         + ((1 + nv) * 4 + 4) * w * h,
@@ -713,33 +745,6 @@ def fwd_bound(entries, t_total, feat_numel, nv, w, h, visited, weighted):
                  visited * 14 + weighted * (4 + 2 * (1 + nv)))
 
 
-def subset_stream(st, cam, used, w, h, budget, with_depth):
-    """Prologue, decode and sort of a subset render (opacity masked to 0
-    off the subset, as render_fwd does) at `budget`, raised to twice the
-    demand as the segmentation ladder does when the demand exceeds it."""
-    import torch
-
-    from wheat3dgs_tpu_torch.ops import cuda_raster as CR
-    from wheat3dgs_tpu_torch.ops.projection import project_gaussians
-
-    with torch.no_grad():
-        opacity = torch.where(used, st.opacity(),
-                              torch.zeros_like(st.params.opacity_logit))
-        splats = project_gaussians(
-            st.params.means, st.scales(), st.params.quats, opacity, *cam, w,
-            h, colors=torch.zeros((st.capacity, 1), device=DEVICE))
-        plan = CR.alloc_prologue(splats, w, h, budget)
-        if int(plan.total) > budget:
-            budget = (int(plan.total) * 2 + 127) // 128 * 128
-            plan = CR.alloc_prologue(splats, w, h, budget)
-        key, alive = CR.decode_cull(plan)
-        skeys, starts, ends = CR.sorted_stream(key, plan.t_total,
-                                               plan.rank_bits)
-        feat = CR.entry_features(splats, plan.order, False, with_depth)
-    return (skeys, starts, ends, feat, plan.rank_bits, w, h), plan, \
-        int(alive), budget
-
-
 def check_seg_kernels(scene, scene_dir: str):
     """Phase 9: the segmentation shapes of the compositor kernels on train
     view 0 of the stand-in model."""
@@ -748,7 +753,8 @@ def check_seg_kernels(scene, scene_dir: str):
 
     from wheat3dgs_tpu_torch.ops import cuda_raster as CR
     from wheat3dgs_tpu_torch.ops.projection import project_gaussians
-    from wheat3dgs_tpu_torch.render.pipeline import adapt_config
+    from wheat3dgs_tpu_torch.render.pipeline import (adapt_config,
+                                                     subset_stream)
     from wheat3dgs_tpu_torch.seg import flashsplat
     from wheat3dgs_tpu_torch.utils import image_ops
 
@@ -785,7 +791,8 @@ def check_seg_kernels(scene, scene_dir: str):
     cols, e, entries = 6 + nv, skeys.shape[0], int(alive)
 
     fargs = (skeys, starts, ends, feat, plan.rank_bits, w, h)
-    img_k, stop_k = CR.composite_train_fwd(*fargs)
+    img_k, stop_k = check_repeatable("composite_train_fwd at nv=9",
+                                     CR.composite_train_fwd, fargs)
     (img_p, stop_p), fwd_plain_ms = timed_once(
         lambda: CR.composite_train_fwd_plain(*fargs))
     err = (img_k - img_p).abs()
@@ -793,6 +800,9 @@ def check_seg_kernels(scene, scene_dir: str):
             (err <= COMPOSITE_ATOL + COMPOSITE_RTOL * img_p.abs()).all()):
         fail(f"composite_train_fwd at nv=9 differs from its plain version: "
              f"max abs err {float(err.max())}")
+    if not torch.equal(img_k, CR.composite_fwd(*fargs)):
+        fail("composite_train_fwd's image at nv=9 differs from "
+             "composite_fwd's")
     stop_off = int((stop_k != stop_p).sum())
     if stop_off > STOP_MISMATCH_MAX * w * h:
         fail(f"composite_train_fwd at nv=9: stop differs on {stop_off} "
@@ -801,8 +811,10 @@ def check_seg_kernels(scene, scene_dir: str):
     fwd = dict(value_rows=nv, ms=cuda_time_ms(
         lambda: CR.composite_train_fwd(*fargs), 20), plain_ms=fwd_plain_ms,
         max_abs_err=float(err.max()), stop_pixels_differing=stop_off,
+        repeat_bit_equal=True,
         shape={"slots": e, "entries": entries, "value_rows": nv,
-               "visited_pairs": visited, "weighted_pairs": weighted})
+               "visited_pairs": visited, "weighted_pairs": weighted},
+        cull=fwd_cull(fargs))
     fwd["bound_ms"], fwd["bound_by"] = bound(
         entries * 8 + plan.t_total * 8 + feat.numel() * 4
         + ((1 + nv) * 4 + 4) * w * h,
@@ -870,25 +882,48 @@ def check_seg_kernels(scene, scene_dir: str):
     for with_depth, b in ((False, seg_budget), (True, budget)):
         cargs, splan, s_entries, b = subset_stream(st, cam, head, w, h, b,
                                                    with_depth)
-        img_k = CR.composite_fwd(*cargs)
+        img_k = check_repeatable(f"composite_fwd at nv={int(with_depth)}",
+                                 CR.composite_fwd, cargs)
         img_p, (vis, wtd) = CR.composite_fwd_plain(*cargs, with_counts=True)
         err = (img_k - img_p).abs()
         if not bool((err <= COMPOSITE_ATOL + COMPOSITE_RTOL *
                      img_p.abs()).all()) or float(img_k[0].max()) <= 0.5:
             fail(f"composite_fwd at nv={int(with_depth)} differs from its "
                  f"plain version ({float(err.max())}) or renders nothing")
+        lens = cargs[2] - cargs[1]
         r = dict(value_rows=int(with_depth),
                  ms=cuda_time_ms(lambda: CR.composite_fwd(*cargs), 50),
                  plain_ms=timed_once(
                      lambda: CR.composite_fwd_plain(*cargs))[1],
-                 max_abs_err=float(err.max()),
+                 max_abs_err=float(err.max()), repeat_bit_equal=True,
                  shape={"slots": b, "demand": int(splan.total),
                         "entries": s_entries, "value_rows": int(with_depth),
-                        "visited_pairs": vis, "weighted_pairs": wtd})
+                        "tiles_with_entries": int((lens > 0).sum()),
+                        "longest_segment": int(lens.max()),
+                        "visited_pairs": vis, "weighted_pairs": wtd},
+                 cull=fwd_cull(cargs))
         r["bound_ms"], r["bound_by"] = fwd_bound(
             s_entries, splan.t_total, cargs[3].numel(), int(with_depth), w,
             h, vis, wtd)
         comp.append(r)
+    # The all-empty frame (every tile's segment empty, 0 rows): the cost of
+    # covering the grid and storing zeros; its image must be all zero.
+    empty = torch.zeros_like(cargs[1])
+    eargs = (cargs[0], empty, empty, cargs[3][:, :6].contiguous(),
+             *cargs[4:])
+    img_k = check_repeatable("composite_fwd on an empty frame",
+                             CR.composite_fwd, eargs)
+    if img_k.shape != (1, h, w) or bool(img_k.any()):
+        fail("composite_fwd on an empty frame: not an all-zero image")
+    r = dict(value_rows=0, ms=cuda_time_ms(lambda: CR.composite_fwd(*eargs),
+                                           50),
+             plain_ms=timed_once(lambda: CR.composite_fwd_plain(*eargs))[1],
+             max_abs_err=0.0, repeat_bit_equal=True,
+             shape={"entries": 0, "value_rows": 0, "visited_pairs": 0,
+                    "weighted_pairs": 0})
+    # The function only writes the zero image.
+    r["bound_ms"], r["bound_by"] = bound(w * h * 4, 0)
+    comp.append(r)
     return fwd, bwd, seg, comp, lift
 
 

@@ -66,7 +66,8 @@ def test_render_sets_refuses_without_card(tmp_path):
 
 
 @pytest.mark.parametrize("app", ["run_3d_seg_app", "eval_wheatgs_app",
-                                 "prof_scan", "profile_backward"])
+                                 "prof_scan", "profile_backward",
+                                 "profile_forward"])
 def test_seg_and_probe_entry_points_refuse_without_card(tmp_path, app):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
@@ -76,7 +77,8 @@ def test_seg_and_probe_entry_points_refuse_without_card(tmp_path, app):
     argv = {"run_3d_seg_app": ["-s", str(tmp_path), "-m", str(tmp_path)],
             "eval_wheatgs_app": ["-m", str(tmp_path)],
             "prof_scan": [],
-            "profile_backward": ["--out", str(tmp_path)]}[app]
+            "profile_backward": ["--out", str(tmp_path)],
+            "profile_forward": ["--out", str(tmp_path)]}[app]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mod.main(argv)
 

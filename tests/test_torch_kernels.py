@@ -9,8 +9,11 @@ that has only the port's dependencies:
 Tolerances: decode_cull keys and alive count exactly equal (its source is
 built without FMA contraction); composite_fwd and composite_train_fwd
 atol 1e-4 + rtol 1e-4 (the kernel sums per pixel sequentially, the plain
-version per chunk through a cumsum); the train forward's stop equal but on
-the few pixels whose transmittance lands within rounding of the 1e-4 floor;
+version per chunk through a cumsum), on partial edge tiles, a near-empty
+and an all-empty 1600x1200 frame and 0, 1, 4 and 9 value rows, with two
+launches bit-identical and the two kernels' images equal; the train
+forward's stop equal but on the few pixels whose transmittance lands
+within rounding of the 1e-4 floor;
 composite_bwd within 1e-3 of each column's max |value| (the per-entry sums
 run in another order: a shuffle tree over 1024 pixels against a sum over a
 tensor axis); segsum within 1e-5 of each column's max (float32 against a
@@ -134,6 +137,66 @@ def test_composite_train_fwd_kernel_matches_plain(channels):
 # Value rows -> (colour channels, with colour, with depth) of the table.
 NV_LAYOUT = {0: (3, False, False), 1: (3, False, True), 4: (3, True, True),
              9: (8, True, True)}
+
+
+def _forward_case(dev, case, nv):
+    """Compositor arguments of one forward case: "edges" (200x150, partial
+    edge tiles, 40 large splats), "cluster" (one small cluster of 400
+    splats in a 1600x1200 image: a near-empty frame) or "empty" (the
+    cluster's stream with every tile's segment emptied)."""
+    channels, with_color, with_depth = NV_LAYOUT[nv]
+    if case == "edges":
+        width, height = 200, 150
+        plan, skeys, starts, ends, _, feat = _stream(
+            dev, width=width, height=height, channels=channels,
+            with_color=with_color, with_depth=with_depth, big=40)
+        return (skeys, starts, ends, feat, plan.rank_bits, width, height)
+    width, height = 1600, 1200
+    s = _splats(dev, 400, width, height, seed=6, channels=channels)
+    # Moved into one spot and shrunk 4x (conic x 16, radius / 4).
+    centre = torch.tensor([800.0, 600.0], device=dev)
+    s = s._replace(xy=centre + (s.xy - s.xy.mean(dim=0)) * 0.05,
+                   conic=s.conic * 16.0, radius=(s.radius + 3) // 4)
+    plan = CR.alloc_prologue(s, width, height, 128)
+    plan = CR.alloc_prologue(s, width, height,
+                             (int(plan.total) + 127) // 128 * 128)
+    key, _ = CR.decode_cull(plan)
+    skeys, starts, ends = CR.sorted_stream(key, plan.t_total, plan.rank_bits)
+    feat = CR.entry_features(s, plan.order, with_color, with_depth)
+    if case == "empty":
+        starts = ends = torch.zeros_like(starts)
+    else:
+        assert 0 < int((ends > starts).sum()) < 0.05 * plan.t_total
+    return (skeys, starts, ends, feat, plan.rank_bits, width, height)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nv", sorted(NV_LAYOUT))
+@pytest.mark.parametrize("case", ["edges", "cluster", "empty"])
+def test_forward_compositors_match_plain(case, nv):
+    """Both forward kernels against the plain walk, bit-identical over two
+    launches, and composite_train_fwd's image equal to composite_fwd's."""
+    dev = _card()
+    args = _forward_case(dev, case, nv)
+    width, height = args[-2:]
+    before = dict(CR.launches)
+    img, img2 = CR.composite_fwd(*args), CR.composite_fwd(*args)
+    (timg, stop), (timg2, stop2) = (CR.composite_train_fwd(*args),
+                                    CR.composite_train_fwd(*args))
+    ref, stop_p = CR.composite_train_fwd_plain(*args)
+    torch.cuda.synchronize()
+    for k in ("composite_fwd", "composite_train_fwd"):
+        assert CR.launches[k] == before[k] + 2
+    assert img.shape == ref.shape == (1 + nv, height, width)
+    assert torch.equal(img, img2) and torch.equal(timg, timg2)
+    assert torch.equal(stop, stop2)
+    assert torch.equal(img, timg)
+    torch.testing.assert_close(img, ref, atol=1e-4, rtol=1e-4)
+    assert int((stop != stop_p).sum()) <= 0.001 * width * height
+    if case == "empty":
+        assert not bool(img.any()) and not bool(stop.any())
+    else:
+        assert float(ref[0].max()) > 0.5
 
 
 @pytest.mark.gpu

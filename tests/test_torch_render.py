@@ -102,6 +102,31 @@ def test_render_fwd_matches_jax(mode):
                                atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("budget", [4096, 64])
+def test_subset_stream_alpha_matches_render_fwd(budget):
+    """subset_stream's compositor inputs give render_fwd's alpha of the
+    same subset (opacity masked off it) at the budget it settles on; a
+    budget under the demand is raised to twice the demand."""
+    params, _ = _numpy_params(150, seed=6)
+    p, alive, inst = _as_numpy(_jax_state(params))
+    state = TG.state_from_numpy(p, alive, inst, device="cpu")
+    cam = _torch_cam(testing.look_at_camera(width=70, height=45))
+    used = torch.from_numpy(
+        np.random.default_rng(1).random(state.capacity) < 0.5)
+    args, plan, alive_n, used_budget = TP.subset_stream(
+        state, cam, used, 70, 45, budget, with_depth=False)
+    assert int(plan.total) <= used_budget
+    assert used_budget == budget if budget >= int(plan.total) else \
+        used_budget >= 2 * int(plan.total)
+    img = TP.cuda_raster.composite_fwd_plain(*args)
+    out = TP.render_fwd(state, *cam, 70, 45, sh_degree=0, used_mask=used,
+                        config=TP.RasterConfig(entry_budget=used_budget),
+                        with_color=False, with_depth=False)
+    assert img.shape == (1, 45, 70) and float(img.max()) > 0.5
+    assert int(out.entries_alive) == alive_n
+    assert torch.equal(img[0], out.alpha)
+
+
 def _tree(root):
     out = set()
     for split in ("train", "test"):

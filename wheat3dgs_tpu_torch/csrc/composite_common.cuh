@@ -1,7 +1,9 @@
 // Device code shared by the compositors (composite_fwd.cu and
 // composite_bwd.cu): the tile geometry and renderCUDA's per-pair alpha.
 //
-// A tile is 32x32 pixels, one block of 1024 threads, one pixel a thread.
+// A tile is 32x32 pixels. composite_bwd.cu runs it as one block of 1024
+// threads, one pixel a thread (tile_pixel); composite_fwd.cu as four blocks
+// of a 16x16 sub-tile each.
 // The entries of a tile are the sorted positions [starts[t], ends[t]) of the
 // int64 key stream; key & rank_mask is an entry's depth rank, the row of the
 // rank-ordered feature table feat = [x, y, conic a, b, c, opacity,

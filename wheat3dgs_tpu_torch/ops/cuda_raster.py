@@ -15,8 +15,10 @@ Counterpart of wheat3dgs_tpu/ops/pallas_raster.py (`_rank_bits`,
 - one torch sort of the keys (its permutation maps sorted entries back to
   their slots) and a searchsorted of the per-tile bounds;
 - `composite_fwd` (kernel, csrc/composite_fwd.cu; replaces
-  `_fwd_only_kernel`): per-tile front-to-back compositing of [weight sum,
-  depth?, colours...] straight into the image;
+  `_fwd_only_kernel`): front-to-back compositing of [weight sum, depth?,
+  colours...] straight into the image, one 16x16 sub-tile a work item,
+  over the tile's entries that the sub-tile cull keeps (`fwd_subtile_keep`
+  is its plain mirror);
 - `composite_train_fwd` (kernel, the same source; replaces `_fwd_kernel`):
   the same image plus, per pixel, the sorted position one past the last
   entry it included (the backward's stop, CUDA's `n_contrib`);
@@ -59,6 +61,7 @@ CHUNK = 128          # entry budgets are multiples of this (as in JAX)
 FEAT = 16            # JAX's packed feature width: 7 + values <= 16
 LOG_T_EPS = math.log(T_EPS)
 TILE_PX = 32         # the entry-stream rasterizer's tile side
+SUB_PX = 16          # the forward compositors' work item: a 16x16 sub-tile
 MAX_SPAN = 1024      # tiles one splat may cover (center-cropped beyond)
 PLAIN_TILE_BATCH = 64    # tiles per step of the plain compositor
 PLAIN_CHUNK = 128        # entries per step of the plain compositor
@@ -258,22 +261,28 @@ def _chunk_alpha(feat_r, rank, pos, valid, px, py):
 
 
 def _plain_forward(skeys, starts, ends, feat_r, rank_bits: int, width: int,
-                   height: int, with_stop: bool, with_counts: bool):
+                   height: int, with_stop: bool, with_counts: bool,
+                   keep: Optional[torch.Tensor] = None):
     """The `_fwd_kernel` / `_fwd_only_kernel` maths per tile and per chunk
     of PLAIN_CHUNK entries (log-space transmittance via a cumsum over the
     chunk), PLAIN_TILE_BATCH tiles at a time so it fits on the card at full
-    width. Returns (image, stop or None, (visited, weighted) or None)."""
+    width. With `keep` ((E, 4) bool, fwd_subtile_keep), each pixel walks
+    only the entries kept in its sub-tile, as the kernels do. Returns
+    (image, stop or None, (visited, weighted) or None)."""
     dev = feat_r.device
     nv = feat_r.shape[1] - 6
     tiles_x, tiles_y = num_tiles(width, height, TILE_PX)
     t_total = tiles_x * tiles_y
     p = TILE_PX * TILE_PX
+    e = skeys.shape[0]
     rank = skeys & ((1 << rank_bits) - 1)
     raw = torch.zeros((t_total, 1 + nv, p), dtype=torch.float32, device=dev)
     stop = torch.zeros((t_total, 1, p), dtype=torch.int64, device=dev)
     visited = torch.zeros((), dtype=torch.int64, device=dev)
     weighted = torch.zeros((), dtype=torch.int64, device=dev)
     lane = torch.arange(PLAIN_CHUNK, device=dev)
+    pix = torch.arange(p, device=dev)
+    pix_sub = (pix % TILE_PX) // SUB_PX + 2 * ((pix // TILE_PX) // SUB_PX)
     for b0 in range(0, t_total, PLAIN_TILE_BATCH):
         tids = torch.arange(b0, min(b0 + PLAIN_TILE_BATCH, t_total),
                             device=dev)
@@ -292,6 +301,14 @@ def _plain_forward(skeys, starts, ends, feat_r, rank_bits: int, width: int,
             valid = pos < en[:, None]
             f, _, _, _, _, alpha = _chunk_alpha(feat_r, rank, pos, valid,
                                                 px, py)
+            walk = valid[:, None, :]                           # (B, 1|P, K)
+            if keep is not None:
+                # The kernels walk neither culled entries nor pixels
+                # outside the image.
+                walk = walk & keep[pos.clamp(max=max(e - 1, 0))][
+                    :, :, pix_sub].transpose(1, 2) \
+                    & ((px < width) & (py < height))[:, :, None]
+                alpha = torch.where(walk, alpha, torch.zeros_like(alpha))
             l1m = torch.log1p(-alpha)
             log_t_after = log_t[:, :, None] + torch.cumsum(l1m, dim=2)
             include = log_t_after >= LOG_T_EPS
@@ -308,7 +325,7 @@ def _plain_forward(skeys, starts, ends, feat_r, rank_bits: int, width: int,
                 # A walk visits an entry while the pixel is still open
                 # before it, i.e. up to and including the stopping entry.
                 open_before = (log_t_after - l1m) >= LOG_T_EPS
-                visited += (open_before & valid[:, None, :]).sum()
+                visited += (open_before & walk).sum()
                 weighted += (w > 0).sum()
             log_t = log_t_after[:, :, -1]
         raw[tids] = acc
@@ -342,6 +359,86 @@ def _compositor_shapes(name, skeys, starts, ends, feat_r, width, height):
 def _cuda_only(name: str, t: torch.Tensor) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {t.device}")
+
+
+# --- the forward compositors' sub-tile cull -----------------------------------
+
+
+def _box_keep(f, bx0, bx1, by0, by1):
+    """csrc/composite_fwd.cu's box_keep on rows f = [x, y, a, b, c, o]
+    against pixel boxes [bx0, bx1] x [by0, by1]: False only where the
+    entry's alpha is under ALPHA_MIN at every pixel of the box. The
+    minimum of the conic quadratic over the box (decode_cull's exact tile
+    test) is compared with 2 ln(o / ALPHA_MIN) + 1e-3, plus a rounding
+    allowance of 2^-16 of the quadratic's largest term over the box; an
+    entry whose conic is not positive definite (or that is NaN) is kept."""
+    x, y, a, b, c, o = (f[..., i] for i in range(6))
+    x0, x1, y0, y1 = bx0 - x, bx1 - x, by0 - y, by1 - y
+
+    def edge(d_fix, lo, hi, c_fix, c_free):
+        t = torch.minimum(torch.maximum(-b * d_fix / c_free, lo), hi)
+        return c_fix * d_fix * d_fix + 2.0 * b * d_fix * t + c_free * t * t
+
+    inside = (x0 <= 0) & (x1 >= 0) & (y0 <= 0) & (y1 >= 0)
+    qmin = torch.minimum(
+        torch.minimum(edge(x0, y0, y1, a, c), edge(x1, y0, y1, a, c)),
+        torch.minimum(edge(y0, x0, x1, c, a), edge(y1, x0, x1, c, a)))
+    qmin = torch.where(inside, torch.zeros_like(qmin), qmin)
+    dx = torch.maximum(x0.abs(), x1.abs())
+    dy = torch.maximum(y0.abs(), y1.abs())
+    slack = (a * dx * dx + 2.0 * b.abs() * dx * dy + c * dy * dy) * 2.0 ** -16
+    q_max = 2.0 * torch.log(o / ALPHA_MIN)
+    definite = (a > 0) & (c > 0) & (a * c > b * b)
+    return ~definite | ~(qmin > q_max + 1e-3 + slack)
+
+
+def fwd_subtile_keep(skeys, starts, ends, feat_r, rank_bits: int,
+                     width: int, height: int) -> torch.Tensor:
+    """The forward compositors' cull as plain torch: (E, 4) bool, True
+    where sorted entry k may reach ALPHA_MIN in sub-tile s of its tile
+    (s = column half + 2 * row half, each box clipped to the image). False
+    for entries outside their tile's segment (decode_cull's culled slots)
+    and sub-tiles outside the image."""
+    tiles_x, tiles_y = num_tiles(width, height, TILE_PX)
+    t_total = tiles_x * tiles_y
+    tile = skeys >> rank_bits
+    tc = tile.clamp(max=t_total - 1)
+    k = torch.arange(skeys.shape[0], device=skeys.device)
+    listed = (tile < t_total) & (k >= starts[tc]) & (k < ends[tc])
+    f = feat_r[:, :6][(skeys & ((1 << rank_bits) - 1))]
+    sub = torch.arange(4, device=skeys.device)
+    bx = ((tile % tiles_x) * TILE_PX)[:, None] + (sub % 2) * SUB_PX
+    by = ((tile // tiles_x) * TILE_PX)[:, None] + (sub // 2) * SUB_PX
+    bx1 = torch.clamp(bx + SUB_PX, max=width) - 1
+    by1 = torch.clamp(by + SUB_PX, max=height) - 1
+    keep = _box_keep(f[:, None, :], bx.float(), bx1.float(), by.float(),
+                     by1.float())
+    return keep & listed[:, None] & (bx < width) & (by < height)
+
+
+def fwd_block_steps(skeys, starts, ends, feat_r, rank_bits: int, width: int,
+                    height: int):
+    """The forward compositors' work under their cull, counted with the
+    plain walk: (kept, walked, visited) = the (sub-tile, entry) pairs the
+    cull keeps; the pairs it tests (every entry of a tile's segment in each
+    of its sub-tiles inside the image); and the (pixel, entry) pairs a
+    pixel walks among its sub-tile's kept entries while open, up to and
+    including its stopping entry (pixels inside the image only, where
+    composite_fwd_plain's `visited` also counts the pixels of partial tiles
+    beyond it)."""
+    keep = fwd_subtile_keep(skeys, starts, ends, feat_r, rank_bits, width,
+                            height)
+    tiles_x, tiles_y = num_tiles(width, height, TILE_PX)
+    sub = torch.arange(4, device=skeys.device)
+    t = torch.arange(tiles_x * tiles_y, device=skeys.device)
+    n_sub = ((((t % tiles_x) * TILE_PX)[:, None] + (sub % 2) * SUB_PX < width)
+             & (((t // tiles_x) * TILE_PX)[:, None] + (sub // 2) * SUB_PX
+                < height)).sum(dim=1)
+    walked = int((n_sub * (ends - starts).long()).sum())
+    _, _, (visited, _) = _plain_forward(skeys, starts, ends, feat_r,
+                                        rank_bits, width, height, False, True,
+                                        keep)
+    return int(keep.sum()), walked, visited
 
 
 # --- composite_fwd -----------------------------------------------------------

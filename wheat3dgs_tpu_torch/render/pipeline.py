@@ -16,6 +16,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..models.gaussians import GaussianState
+from ..ops import cuda_raster
 from ..ops.binning import capped_rect, num_tiles, pick_entry_budget
 from ..ops.cuda_raster import MAX_SPAN, TILE_PX, rasterize, rasterize_fwd
 from ..ops.projection import project_gaussians
@@ -149,6 +150,32 @@ def render_fwd(
     return RenderOut(color=out.color, depth=out.depth, alpha=out.alpha,
                      radii=out.radii, entries_total=out.entries_total,
                      entries_alive=out.entries_alive)
+
+
+@torch.no_grad()
+def subset_stream(state: GaussianState, cam, used_mask: torch.Tensor,
+                  width: int, height: int, budget: int, with_depth: bool):
+    """The compositor's inputs for render_fwd's alpha-only (with_depth:
+    alpha and depth) render of the subset `used_mask` (opacity masked to 0
+    off it) at `budget`, raised to twice the demand when the demand exceeds
+    it, as the segmentation ladder reruns such a render. Returns
+    (composite_fwd's arguments, the EntryPlan, the alive-entry count, the
+    budget used)."""
+    opacity = torch.where(used_mask, state.opacity(),
+                          torch.zeros_like(state.params.opacity_logit))
+    splats = project_gaussians(
+        state.params.means, state.scales(), state.params.quats, opacity,
+        *cam, width, height, colors=_zero_colors(state))
+    plan = cuda_raster.alloc_prologue(splats, width, height, budget)
+    if int(plan.total) > budget:
+        budget = (int(plan.total) * 2 + 127) // 128 * 128
+        plan = cuda_raster.alloc_prologue(splats, width, height, budget)
+    key, alive = cuda_raster.decode_cull(plan)
+    skeys, starts, ends = cuda_raster.sorted_stream(key, plan.t_total,
+                                                    plan.rank_bits)
+    feat = cuda_raster.entry_features(splats, plan.order, False, with_depth)
+    return ((skeys, starts, ends, feat, plan.rank_bits, width, height), plan,
+            int(alive), budget)
 
 
 @torch.no_grad()
