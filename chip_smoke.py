@@ -55,8 +55,13 @@ when run outside a checkout of the repo. Phases, each reported on a line:
 11. evaluation path: `apps/eval_wheatgs_app.main` on the same model
    (all_counts.pt and the test split's segmentation / overlay PNGs);
 12. the scan probe: each kind of the kernel against its plain version on
-   the probe's input and a seeded normal block, timed beside a
-   torch.cumsum loop, then `apps/prof_scan.main` with the counters reset;
+   the probe's input and a seeded normal block, and at the cluster's edge
+   shapes (8 rows, fewer than its CTAs; 1000 rows, not a multiple of them;
+   the probe's 1024 is the most it holds), two launches bit-identical,
+   `steps = 0` returning the input, a row past the cluster's capacity
+   refused; timed at 256 and 64 steps (the slope is the time a step
+   costs) beside a torch.cumsum loop, eager and replayed from a CUDA graph;
+   then `apps/prof_scan.main` with the counters reset;
 13. a `kernels` JSON line, then the device line last.
 Work files go to `_smoke_work/` in the checkout and are removed on success.
 """
@@ -67,16 +72,11 @@ import contextlib
 import json
 import os
 import shutil
-import subprocess
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "_smoke_work")
-
-# H100 SXM published peaks (NVIDIA data sheet), used for the bound column.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
 
 # composite_fwd against its plain version: the kernel sums each pixel's
 # weights sequentially with FMA contraction, the plain version per 128-entry
@@ -113,9 +113,6 @@ SEG_MEDIAN_PURITY = 0.5
 # 7.35 dB, 17.32 -> 24.67).
 PSNR_RISE_DB = 3.0
 
-# Card clock cycles of the spin that timed launches queue behind.
-SPIN_CYCLES = 20_000_000
-
 BENCH = dict(width=1600, height=1200, n_cams=12, n_heads=32,
              pts_per_head=3000, ground_pts=104_000, seed=0)
 ITERATION = 30_000
@@ -123,6 +120,8 @@ FPS_RENDERS = 30
 TRAIN_ITERS = 300
 TRAIN_TIMED = 30
 DEVICE = "cuda"
+# cuda_time_ms, bound, fwd_bound and smi_line are bound in main(), from the
+# port's utils/cuda_timing, once the port is found next to this script.
 
 
 def fail(msg: str) -> None:
@@ -132,43 +131,6 @@ def fail(msg: str) -> None:
 
 def say(phase: str, **kv) -> None:
     print(phase + ": " + json.dumps(kv), flush=True)
-
-
-def smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    if out.returncode != 0:
-        fail(f"nvidia-smi rc {out.returncode}: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """The card's time per call of fn, with CUDA events around `reps`
-    calls queued behind a spin of ~10 ms on the card, so that the events
-    time the card's work and not the host's enqueueing (a short kernel's
-    Python wrapper takes tens of microseconds)."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SPIN_CYCLES)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
-def bound(bytes_moved: float, flops: float):
-    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def make_data(scene_dir: str, model_dir: str) -> int:
@@ -736,15 +698,6 @@ def train_rate(trainer, scene) -> dict:
                 last_loss=float(m["loss"]))
 
 
-def fwd_bound(entries, t_total, feat_numel, nv, w, h, visited, weighted):
-    """composite_fwd's bound, as in phase 4: the live keys, tile bounds,
-    feature table and image; 14 ops per visited pair, 4 + 2 (1 + nv) per
-    weighted pair."""
-    return bound(entries * 8 + t_total * 8 + feat_numel * 4
-                 + (1 + nv) * w * h * 4,
-                 visited * 14 + weighted * (4 + 2 * (1 + nv)))
-
-
 def check_seg_kernels(scene, scene_dir: str):
     """Phase 9: the segmentation shapes of the compositor kernels on train
     view 0 of the stand-in model."""
@@ -1111,20 +1064,50 @@ def eval_path(model_dir: str) -> dict:
 
 
 def check_probe() -> dict:
-    """Phase 12: the scan probe's kinds against the plain version, timed,
-    then apps/prof_scan with the launch counters read around it."""
+    """Phase 12: the scan probe's kinds against the plain version, at the
+    cluster's edges, repeated and at 0 steps; timed at 256 and 64 steps
+    beside the torch.cumsum loop (eager and as a CUDA graph); then
+    apps/prof_scan with the launch counters read around it."""
     import numpy as np
     import torch
 
     from wheat3dgs_tpu_torch.apps import prof_scan
     from wheat3dgs_tpu_torch.ops import cuda_raster as CR
     from wheat3dgs_tpu_torch.ops import scan_probe as SP
+    from wheat3dgs_tpu_torch.utils.cuda_timing import graphed
 
     p, c, steps = prof_scan.P, prof_scan.C, prof_scan.STEPS
-    inputs = {
-        "ones": torch.full((p, c), 0.001, device=DEVICE),
-        "normal": torch.as_tensor(np.random.default_rng(0).normal(
-            size=(p, c)).astype(np.float32), device=DEVICE)}
+    short, edge_steps = 64, 17
+    rng = np.random.default_rng(0)
+
+    def normal(rows):
+        return torch.as_tensor(rng.normal(size=(rows, c)).astype(np.float32),
+                               device=DEVICE)
+
+    inputs = {"ones": torch.full((p, c), 0.001, device=DEVICE),
+              "normal": normal(p)}
+    # Fewer rows than the cluster's CTAs, and rows that are no multiple of
+    # them; the probe's 1024 rows are the most one cluster holds.
+    edges = {"rows_8": normal(8), "rows_1000": normal(1000)}
+    if p != SP.MAX_ROWS:
+        fail(f"the probe's {p} rows are not the cluster's {SP.MAX_ROWS}")
+    try:
+        SP.scan_probe(normal(SP.MAX_ROWS + 1), "cumsum", 1)
+        fail(f"scan_probe took {SP.MAX_ROWS + 1} rows")
+    except ValueError:
+        pass
+
+    def check(kind, name, x, n):
+        got = SP.scan_probe(x, kind, n)
+        ref = SP.scan_probe_plain(x, kind, n)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        if not bool(torch.isfinite(got).all()) or rel > PROBE_REL:
+            fail(f"scan_probe {kind} on {name} ({tuple(x.shape)}, {n} "
+                 f"steps): {rel} of the max (bound {PROBE_REL})")
+        return got, err
+
     # Every kind computes one function: a row prefix sum (one add per
     # value), then |s|, the max and the scale, so one bound holds for all
     # of them. algorithm_ops is what each kind's own algorithm does.
@@ -1134,27 +1117,34 @@ def check_probe() -> dict:
     for kind in SP.KINDS:
         errs = {}
         for name, x in inputs.items():
-            got = SP.scan_probe(x, kind, steps)
-            ref = SP.scan_probe_plain(x, kind, steps)
-            torch.cuda.synchronize()
-            errs[name] = float((got - ref).abs().max())
-            rel = errs[name] / float(ref.abs().max())
-            if not bool(torch.isfinite(got).all()) or rel > PROBE_REL:
-                fail(f"scan_probe {kind} on {name}: {rel} of the max "
-                     f"(bound {PROBE_REL})")
+            got, errs[name] = check(kind, name, x, steps)
+        for name, x in edges.items():
+            _, errs[name] = check(kind, name, x, edge_steps)
+        check_repeatable(f"scan_probe {kind}", SP.scan_probe,
+                         (inputs["normal"], kind, steps))
+        if not torch.equal(SP.scan_probe(got, kind, 0), got):
+            fail(f"scan_probe {kind} with 0 steps changed its input")
         x = inputs["ones"]
         r = dict(ms=cuda_time_ms(lambda: SP.scan_probe(x, kind, steps), 10),
+                 ms_64_steps=cuda_time_ms(
+                     lambda: SP.scan_probe(x, kind, short), 10),
                  plain_ms=cuda_time_ms(
                      lambda: SP.scan_probe_plain(x, kind, steps), 2,
                      warmup=1),
-                 max_abs_err=max(errs.values()), max_abs_err_by_input=errs)
+                 max_abs_err=max(errs.values()), max_abs_err_by_input=errs,
+                 repeat_bit_equal=True, steps_0_identity=True)
         r["us_per_scan"] = r["ms"] * 1e3 / steps
+        r["us_per_step"] = (r["ms"] - r["ms_64_steps"]) * 1e3 / (steps
+                                                                 - short)
         r["bound_ms"], r["bound_by"] = bound(2 * p * c * 4,
                                              p * c * steps * func_ops)
         r["algorithm_ops"] = p * c * steps * (algorithm_ops[kind] + 3)
         kinds[kind] = r
-    library_ms = cuda_time_ms(
-        lambda: prof_scan.cumsum_loop(inputs["ones"], steps), 3)
+    def loop():
+        return prof_scan.cumsum_loop(inputs["ones"], steps)
+
+    library_eager_ms = cuda_time_ms(loop, 3)
+    library_ms = cuda_time_ms(graphed(loop), 10)
     CR.reset_launches()
     t0 = time.perf_counter()
     app = prof_scan.main([])
@@ -1162,11 +1152,15 @@ def check_probe() -> dict:
     launches = CR.launches["scan_probe"]
     if launches <= 0:
         fail("the scan probe kernel was not launched by apps/prof_scan")
-    return dict(kinds=kinds, library_ms=library_ms,
+    return dict(kinds=kinds, cluster=SP.cluster_size(),
+                max_rows=SP.MAX_ROWS, library_ms=library_ms,
+                library_eager_ms=library_eager_ms,
                 library_us_per_scan=library_ms * 1e3 / steps,
                 app_us_per_scan=app, seconds=seconds,
                 launches={"scan_probe": launches},
-                shape={"rows": p, "lanes": c, "steps": steps})
+                shape={"rows": p, "lanes": c, "steps": steps,
+                       "short_steps": short, "edge_rows": [8, 1000],
+                       "edge_steps": edge_steps})
 
 
 def main() -> None:
@@ -1177,9 +1171,16 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
     sys.path.insert(0, ROOT)
+    # The card timer and the roofline bounds (H100 SXM peaks) are the
+    # port's, shared with its profiling apps.
+    global bound, cuda_time_ms, fwd_bound, smi_line
     try:
         import wheat3dgs_tpu_torch  # noqa: F401
         from wheat3dgs_tpu_torch.ops import cuda_build
+        from wheat3dgs_tpu_torch.utils.cuda_timing import (bound,
+                                                            cuda_time_ms,
+                                                            fwd_bound,
+                                                            smi_line)
     except ImportError as exc:
         fail(f"the port is not importable next to this script ({exc})")
     t_start = time.perf_counter()
@@ -1301,7 +1302,8 @@ def main() -> None:
                      "segmentation_shapes": [
                          {k: x.get(k) for k in keys} for x in shapes]})
     # The probe's row: the cumsum kind (torch.cumsum computes the same
-    # function), each kind beside it.
+    # function; library_ms is its loop replayed from a CUDA graph, without
+    # the host's launches), each kind beside it.
     cum = probe["kinds"]["cumsum"]
     rows.append({"name": "scan_probe", "route": "cuda",
                  "source": src + "scan_probe.cu",
@@ -1312,10 +1314,12 @@ def main() -> None:
                  "ms": cum["ms"], "plain_ms": cum["plain_ms"],
                  "bound_ms": cum["bound_ms"], "bound_by": cum["bound_by"],
                  "library_ms": probe["library_ms"],
-                 "kinds": {k: {x: v[x] for x in ("ms", "plain_ms",
-                                                 "bound_ms", "bound_by",
-                                                 "max_abs_err",
-                                                 "us_per_scan",
+                 "library_eager_ms": probe["library_eager_ms"],
+                 "cluster": probe["cluster"],
+                 "kinds": {k: {x: v[x] for x in ("ms", "ms_64_steps",
+                                                 "plain_ms", "bound_ms",
+                                                 "bound_by", "max_abs_err",
+                                                 "us_per_scan", "us_per_step",
                                                  "algorithm_ops")}
                            for k, v in probe["kinds"].items()}})
     shutil.rmtree(WORK, ignore_errors=True)

@@ -67,7 +67,7 @@ def test_render_sets_refuses_without_card(tmp_path):
 
 @pytest.mark.parametrize("app", ["run_3d_seg_app", "eval_wheatgs_app",
                                  "prof_scan", "profile_backward",
-                                 "profile_forward"])
+                                 "profile_forward", "profile_probe"])
 def test_seg_and_probe_entry_points_refuse_without_card(tmp_path, app):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
@@ -78,7 +78,8 @@ def test_seg_and_probe_entry_points_refuse_without_card(tmp_path, app):
             "eval_wheatgs_app": ["-m", str(tmp_path)],
             "prof_scan": [],
             "profile_backward": ["--out", str(tmp_path)],
-            "profile_forward": ["--out", str(tmp_path)]}[app]
+            "profile_forward": ["--out", str(tmp_path)],
+            "profile_probe": []}[app]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mod.main(argv)
 

@@ -21,7 +21,10 @@ float64 running sum); end-to-end gradients within 2% of each leaf's max
 |g|, the bound of tests/test_pallas.py. The segmentation lift's shape (9
 value rows: depth + 8 label channels) is held to the same bounds. The scan
 probe within 1e-5 of the block's max |value| (float32 sums in another
-order, renormalised every step). composite_bwd and segsum sum in a fixed
+order, renormalised every step), at the probe's shape and at the edges of
+its one cluster (8 rows, fewer than its CTAs; rows that are no multiple of
+them; the most it holds), with 0 steps returning the input and a row past
+its capacity refused. composite_bwd, segsum and the probe sum in a fixed
 order, so two launches on the same inputs are bit-identical.
 """
 
@@ -361,6 +364,7 @@ def test_rasterize_gradients_match_plain_path():
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", SP.KINDS)
 @pytest.mark.parametrize("rows,steps,start", [(1024, 256, "ones"),
+                                              (1024, 256, "normal"),
                                               (64, 17, "normal")])
 def test_scan_probe_kernel_matches_plain(kind, rows, steps, start):
     dev = _card()
@@ -377,3 +381,43 @@ def test_scan_probe_kernel_matches_plain(kind, rows, steps, start):
     scale = float(ref.abs().max())
     assert scale > 0
     assert float((got - ref).abs().max()) <= 1e-5 * scale
+
+
+def _normal_block(dev, rows, seed):
+    return torch.as_tensor(np.random.default_rng(seed).normal(
+        size=(rows, SP.LANES)).astype(np.float32), device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", SP.KINDS)
+@pytest.mark.parametrize("rows", [8, 100, 1000, SP.MAX_ROWS])
+def test_scan_probe_kernel_cluster_edges(kind, rows):
+    dev = _card()
+    x = _normal_block(dev, rows, 5)
+    got = SP.scan_probe(x, kind, 17)
+    ref = SP.scan_probe_plain(x, kind, 17)
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    assert scale > 0
+    assert float((got - ref).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", SP.KINDS)
+def test_scan_probe_kernel_repeats_and_zero_steps(kind):
+    dev = _card()
+    x = _normal_block(dev, SP.MAX_ROWS, 6)
+    first = SP.scan_probe(x, kind, 256)
+    again = SP.scan_probe(x, kind, 256)
+    same = SP.scan_probe(x, kind, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    assert torch.equal(same, x)
+
+
+@pytest.mark.gpu
+def test_scan_probe_kernel_refuses_rows_past_the_cluster():
+    dev = _card()
+    x = torch.zeros((SP.MAX_ROWS + 1, SP.LANES), device=dev)
+    with pytest.raises(ValueError, match=f"1..{SP.MAX_ROWS}"):
+        SP.scan_probe(x, "cumsum", 1)

@@ -5,7 +5,9 @@ cumsum, roll), one launch of the probe kernel runs STEPS scans of a
 (P, C) = (1024, 128) float32 block of 0.001s (ops/scan_probe.py,
 csrc/scan_probe.cu) and the time per scan is printed; then the same loop
 in plain PyTorch with torch.cumsum, as a library yardstick. Times come
-from CUDA events around one launch (one loop) after a warm-up.
+from CUDA events around REPS launches (loops) after two of warm-up, queued
+behind a spin on the card (utils/cuda_timing), so that a launch shorter
+than its Python wrapper is timed on the card and not on the host.
 
     python -m wheat3dgs_tpu_torch.apps.prof_scan [--device cpu]
 
@@ -23,8 +25,10 @@ import torch
 
 from .. import resolve_device
 from ..ops.scan_probe import KINDS, scan_probe
+from ..utils.cuda_timing import cuda_time_ms
 
 P, C, STEPS = 1024, 128, 256
+REPS = 5
 
 
 def cumsum_loop(x: torch.Tensor, steps: int) -> torch.Tensor:
@@ -36,16 +40,11 @@ def cumsum_loop(x: torch.Tensor, steps: int) -> torch.Tensor:
 
 
 def time_us_per_scan(fn, device: torch.device) -> float:
-    """One warm-up call, then one timed call of `fn` (STEPS scans)."""
-    fn()
+    """Microseconds per scan of `fn` (STEPS scans a call): on the card
+    REPS timed calls; on the host one, after one warm-up call."""
     if device.type == "cuda":
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(stop) * 1e3 / STEPS
+        return cuda_time_ms(fn, REPS) * 1e3 / STEPS
+    fn()
     t0 = time.perf_counter()
     fn()
     return (time.perf_counter() - t0) * 1e6 / STEPS

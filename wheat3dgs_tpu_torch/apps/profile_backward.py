@@ -6,8 +6,9 @@
 Builds the bench plot (the port's synthetic generator, seed 0: 200,000
 splats, 12 views at 1600x1200) and its SH-3 stand-in model in a work
 directory under --out, takes train view 0 at the entry budget sized over
-the train views, and times with CUDA events (REPS launches after two of
-warm-up; segsum 5 REPS):
+the train views, and times with CUDA events (utils/cuda_timing: REPS
+launches after two of warm-up, queued behind a spin on the card; segsum 5
+REPS):
 - composite_bwd at 4 value rows (depth + RGB) under the L1 + SSIM loss
   against the view's image, and at 9 (depth + 8 label rows) with seeded
   0/1 planes as the label rows' cotangent (the segmentation lift's shape);
@@ -25,29 +26,17 @@ from __future__ import annotations
 import json
 import os
 import shutil
-import subprocess
 import sys
 from argparse import ArgumentParser
 
 import numpy as np
 import torch
 
+from ..utils.cuda_timing import cuda_time_ms, smi_line
+
 BENCH = dict(width=1600, height=1200, n_cams=12, n_heads=32,
              pts_per_head=3000, ground_pts=104_000, seed=0)
 REPS = 20
-
-
-def _time_ms(fn, reps: int) -> float:
-    for _ in range(2):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
 
 
 def _shapes(scene, dev):
@@ -105,9 +94,10 @@ def _run(shapes) -> dict:
         rows = CR.composite_bwd(*bargs)
         sums = CR.segsum(rows, seg_start, seg_end)
         res[nv] = dict(
-            composite_bwd_ms=_time_ms(lambda: CR.composite_bwd(*bargs), REPS),
-            segsum_ms=_time_ms(lambda: CR.segsum(rows, seg_start, seg_end),
-                               REPS * 5),
+            composite_bwd_ms=cuda_time_ms(lambda: CR.composite_bwd(*bargs),
+                                          REPS),
+            segsum_ms=cuda_time_ms(
+                lambda: CR.segsum(rows, seg_start, seg_end), REPS * 5),
             rows=rows, sums=sums)
     return res
 
@@ -128,9 +118,7 @@ def main(argv=None):
     from ..scene import Scene
 
     dev = resolve_device("cuda")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
+    smi = smi_line()
     print(smi, flush=True)
     cuda_build.build(["composite_bwd", "segsum", "composite_fwd",
                       "decode_cull"])
@@ -170,7 +158,7 @@ def main(argv=None):
         used = int(seg_end[-1])
         offsets = torch.cat([seg_start, seg_end[-1:]]).long()
         entry = report["shapes"][nv]
-        entry["library_ms"] = _time_ms(lambda: torch.segment_reduce(
+        entry["library_ms"] = cuda_time_ms(lambda: torch.segment_reduce(
             rows[:used], "sum", offsets=offsets), REPS * 5)
         for which in dict.fromkeys(order):
             sel = [r[nv] for w, r in runs if w == which]

@@ -6,7 +6,7 @@
 Builds the bench plot (the port's synthetic generator, seed 0: 200,000
 splats, 12 views at 1600x1200) and its SH-3 stand-in model in a work
 directory under --out, takes train view 0, and times with CUDA events
-(chip_smoke.cuda_time_ms: REPS launches after two of warm-up, queued
+(utils/cuda_timing: REPS launches after two of warm-up, queued
 behind a spin on the card so that the events time the card's work and not
 the host's enqueueing):
 - composite_fwd alpha-only (0 value rows) of ground-truth head 1 at the
@@ -19,8 +19,8 @@ the host's enqueueing):
   1600x1200 and 0 rows: the cost of covering the grid and storing zeros.
 Each shape also reports its stream (tiles with entries, the longest tile
 segment, entries), the (pixel, entry) pairs of the front-to-back walk and
-the bound they set (chip_smoke.py's formula), and the sub-tile cull's
-counts (cuda_raster.fwd_block_steps).
+the bound they set (utils/cuda_timing.fwd_bound, chip_smoke.py's), and
+the sub-tile cull's counts (cuda_raster.fwd_block_steps).
 With --against DIR[,DIR...], the `csrc/` directories of other trees with
 the same C entry points (the parent's, say), composite_fwd.cu is also
 built from each and the builds run in turns (each DIR, this tree twice,
@@ -38,12 +38,13 @@ import contextlib
 import json
 import os
 import shutil
-import subprocess
 import sys
 from argparse import ArgumentParser
 
 import numpy as np
 import torch
+
+from ..utils.cuda_timing import cuda_time_ms, fwd_bound, smi_line
 
 BENCH = dict(width=1600, height=1200, n_cams=12, n_heads=32,
              pts_per_head=3000, ground_pts=104_000, seed=0)
@@ -100,8 +101,6 @@ def _shapes(scene, scene_dir, dev):
 def _stats(args) -> dict:
     """The stream's shape, walk and bound, and the sub-tile cull's counts
     (with the longest list of kept entries any sub-tile walks)."""
-    import chip_smoke
-
     from ..ops import cuda_raster as CR
 
     skeys, starts, ends, feat, rank_bits, w, h = args
@@ -114,7 +113,7 @@ def _stats(args) -> dict:
                       device=keep.device)
     per.index_add_(0, (skeys >> rank_bits).clamp(max=starts.shape[0]),
                    keep.long())
-    bound_ms, bound_by = chip_smoke.fwd_bound(
+    bound_ms, bound_by = fwd_bound(
         int(lens.sum()), starts.shape[0], feat.numel(), nv, w, h, visited,
         weighted)
     return {"value_rows": nv, "tiles": starts.shape[0],
@@ -145,8 +144,6 @@ def _ptxas() -> dict:
 def _run(shapes) -> dict:
     """Each shape's kernel of the current build, timed; {shape: (ms, image,
     stop or None, repeat bit-equal)}."""
-    import chip_smoke
-
     from ..ops import cuda_raster as CR
 
     res = {}
@@ -159,7 +156,7 @@ def _run(shapes) -> dict:
         img2 = again[0] if isinstance(again, tuple) else again
         equal = torch.equal(img, img2) and (
             stop is None or torch.equal(stop, again[1]))
-        res[name] = (chip_smoke.cuda_time_ms(call, REPS), img, stop, equal)
+        res[name] = (cuda_time_ms(call, REPS), img, stop, equal)
     return res
 
 
@@ -180,12 +177,7 @@ def main(argv=None):
     from ..scene import Scene
 
     dev = resolve_device("cuda")
-    # chip_smoke.py's timing and bound formula.
-    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__)))))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
+    smi = smi_line()
     print(smi, flush=True)
     # Built first, so that the compiler's log read here is this tree's
     # (none when the build predates this run).

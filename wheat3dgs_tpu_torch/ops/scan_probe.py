@@ -10,7 +10,9 @@ upper-triangular matrix), "cumsum" (a running sum) and "roll" (7
 log-shift roll-and-add steps).
 
 `scan_probe` launches the kernel for a CUDA tensor and takes the plain
-version for a CPU tensor; there is no fallback from one to the other.
+version for a CPU tensor; there is no fallback from one to the other. The
+kernel is one thread-block cluster that holds the whole block in its
+registers, so a CUDA block has at most MAX_ROWS rows.
 """
 
 from __future__ import annotations
@@ -19,11 +21,11 @@ import ctypes
 
 import torch
 
-from .cuda_build import launch
+from .cuda_build import launch, load
 
 KINDS = ("matmul", "cumsum", "roll")
 LANES = 128          # values per row (the TPU block's lane width)
-ROWS_PER_BLOCK = 8   # the kernel's rows per block (one warp each)
+MAX_ROWS = 1024      # rows one cluster holds (csrc/scan_probe.cu)
 
 
 def _step(x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -68,16 +70,25 @@ def scan_probe(x: torch.Tensor, kind: str, steps: int) -> torch.Tensor:
         raise ValueError(f"scan_probe: expected (rows, {LANES}) float32, got "
                          f"{tuple(x.shape)} {x.dtype}")
     rows = x.shape[0]
-    if rows == 0 or rows % ROWS_PER_BLOCK:
-        raise ValueError(f"scan_probe: rows must be a positive multiple of "
-                         f"{ROWS_PER_BLOCK}, got {rows}")
+    if not 0 < rows <= MAX_ROWS:
+        raise ValueError(f"scan_probe: rows must be in 1..{MAX_ROWS} (one "
+                         f"cluster's capacity), got {rows}")
     x = x.contiguous()
     out = torch.empty_like(x)
-    # Per-block partial maxima of two consecutive steps.
-    partial = torch.empty((2, rows // ROWS_PER_BLOCK), dtype=torch.float32,
+    # Scratch of the C signature: the earlier grid-barrier build of the
+    # kernel kept two steps' per-block maxima (8 rows a block) in it; the
+    # cluster keeps them in its shared memory.
+    partial = torch.empty((2, (rows + 7) // 8), dtype=torch.float32,
                           device=x.device)
     p, i = ctypes.c_void_p, ctypes.c_int
     launch("scan_probe", [p, i, i, i, p, p],
            (x.data_ptr(), rows, KINDS.index(kind), steps,
             partial.data_ptr(), out.data_ptr()), x.device)
     return out
+
+
+def cluster_size():
+    """CTAs in the built kernel's cluster (None for a build without a
+    cluster, such as the earlier grid-barrier design)."""
+    fn = getattr(load("scan_probe"), "scan_probe_cluster", None)
+    return int(fn()) if fn is not None else None
