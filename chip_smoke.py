@@ -33,11 +33,21 @@ when run outside a checkout of the repo. Phases, each reported on a line:
    timed with CUDA events;
 7. training path: `apps/train_vanilla.main` on the bench scene (100,000
    initial points from points3D, SH 3, bench.py's densify schedule) with
-   the launch counters reset just before and read just after: finite
-   logged losses, a densify event, the entry-budget watchdog, the test
-   PSNR rise, and the saved PLY rendered through `apps/render_sets`;
-8. steady training rate: TRAIN_TIMED Trainer.step calls at SH degree 3
-   with no densify event inside, on the host clock;
+   the launch counters reset just before and read just after, its blocks
+   of K > 1 steps replayed from a CUDA graph (Trainer.step_block): finite
+   logged losses, a densify event, each training kernel counted once per
+   step, the entry-budget watchdog on every step and block, the graph's
+   captures (no more than densify events + budget changes + 1), replays
+   and capture seconds, the test PSNR rise, and the saved PLY rendered
+   through `apps/render_sets`;
+8. steady training rate: Trainer.step and Trainer.step_block at SH
+   degree 3 in turns (step, block, block, step) of TRAIN_BLOCK iterations
+   that end before a multiple of 40 (no densify or probe inside), on the
+   host clock;
+8b. block against eager steps: a block of BLOCK_CHECK steps from a fresh
+   capture against the same steps run eagerly, twice, from copies of the
+   trained state: every state tensor and metric bit-identical, or within
+   the spread of the two eager runs;
 9. segmentation kernels, on train view 0 of the stand-in model: the lift's
    kernels at 9 value rows (depth + 8 label channels: composite_train_fwd,
    composite_bwd, segsum) against their plain versions (and as in phase 6
@@ -118,7 +128,10 @@ BENCH = dict(width=1600, height=1200, n_cams=12, n_heads=32,
 ITERATION = 30_000
 FPS_RENDERS = 30
 TRAIN_ITERS = 300
-TRAIN_TIMED = 30
+# Steps per timed turn of phase 8 (a window that ends before the next
+# multiple of 40, the densify interval) and in the block of phase 8b.
+TRAIN_BLOCK = 39
+BLOCK_CHECK = 8
 DEVICE = "cuda"
 # cuda_time_ms, bound, fwd_bound and smi_line are bound in main(), from the
 # port's utils/cuda_timing, once the port is found next to this script.
@@ -570,7 +583,8 @@ def check_train_kernels(scene):
 
 def train_path(scene_dir: str, out_dir: str):
     """Phase 7: apps/train_vanilla over the bench scene, with the launch
-    counters read around exactly that call."""
+    counters read around exactly that call. Blocks of K > 1 steps run
+    through Trainer.step_block (a step replayed from a CUDA graph)."""
     import math
 
     import numpy as np
@@ -581,26 +595,35 @@ def train_path(scene_dir: str, out_dir: str):
     from wheat3dgs_tpu_torch.apps import render_sets, train_vanilla
     from wheat3dgs_tpu_torch.ops import cuda_raster as CR
 
-    # Record each step's demand and budget (tensors; read after the run so
-    # the record adds no host sync).
+    # Record each step's and each block's demand (a block's maximum) and
+    # budget (tensors; read after the run so the record adds no host sync).
     record = []
-    step = training.Trainer.step
+    step, step_block = training.Trainer.step, training.Trainer.step_block
 
     def recording_step(self, it, *args):
         m = step(self, it, *args)
-        record.append((it, m["entries_total"], self.config.entry_budget,
+        record.append((it, it, m["entries_total"], self.config.entry_budget,
                        m["loss"]))
         return m
 
+    def recording_block(self, it0, *args, n_steps):
+        m = step_block(self, it0, *args, n_steps=n_steps)
+        record.append((it0, it0 + n_steps - 1, m["entries_total"],
+                       self.config.entry_budget, m["loss"]))
+        return m
+
     n_iter = TRAIN_ITERS
+    interval, densify_from, densify_until = 40, 20, n_iter - 100
     argv = ["-s", scene_dir, "-m", out_dir, "--device", DEVICE, "--eval",
-            "--iterations", str(n_iter), "--densify_from_iter", "20",
-            "--densification_interval", "40",
-            "--densify_until_iter", str(n_iter - 100),
+            "--iterations", str(n_iter),
+            "--densify_from_iter", str(densify_from),
+            "--densification_interval", str(interval),
+            "--densify_until_iter", str(densify_until),
             "--opacity_reset_interval", "100000",
             "--test_iterations", "1", str(n_iter),
             "--save_iterations", str(n_iter), "--quiet"]
     training.Trainer.step = recording_step
+    training.Trainer.step_block = recording_block
     try:
         CR.reset_launches()
         t0 = time.perf_counter()
@@ -610,10 +633,15 @@ def train_path(scene_dir: str, out_dir: str):
         launches = dict(CR.launches)
     finally:
         training.Trainer.step = step
+        training.Trainer.step_block = step_block
     for k in ("decode_cull", "composite_train_fwd", "composite_bwd",
               "segsum", "composite_fwd"):
         if launches[k] <= 0:
             fail(f"kernel {k} was not launched on the training path")
+    # Every step runs each training kernel once, replayed or not.
+    for k in ("composite_train_fwd", "composite_bwd", "segsum"):
+        if launches[k] != n_iter:
+            fail(f"{k}: {launches[k]} launches counted in {n_iter} steps")
 
     n_init = len(scene.data.point_cloud.points)
     logs = [json.loads(ln) for ln in open(os.path.join(out_dir,
@@ -622,23 +650,46 @@ def train_path(scene_dir: str, out_dir: str):
     tests = [r for r in logs if "test_psnr" in r]
     if not steps or not all(math.isfinite(r["loss"]) for r in steps):
         fail(f"non-finite or missing logged loss: {steps}")
-    losses = [float(x[3]) for x in record]
+    losses = [float(x[4]) for x in record]
     if not all(math.isfinite(x) for x in losses):
         fail("a training step's loss is not finite")
     if not any(r["n_alive"] != n_init for r in steps):
         fail(f"no densify event changed n_alive from {n_init}")
-    # Every step whose demand exceeded its budget must see the watchdog
-    # raise the budget within 2 checks, unless the run ended first.
+    if sum(b - a + 1 for a, b, *_ in record) != n_iter:
+        fail("the recorded steps and blocks do not cover the run")
+    # The watchdog checks after every block and every k-th step: the
+    # telemetry queued at one check is read at the next, and the record
+    # after that probes. So every check whose demand exceeded its budget
+    # must see the budget raised by then, unless the run ended first.
     k = trainer.overflow_check_every
-    demand = [(it, int(t), b) for it, t, b, _ in record]
-    budget_at = {it: b for it, _, b in demand}
-    over = [(it, t, b) for it, t, b in demand if t > b]
-    for it, t, b in over:
-        later = [budget_at[j] for j in range(it + 1, it + 2 * k + 2)
-                 if j in budget_at]
-        if len(later) == 2 * k + 1 and max(later) <= b:
-            fail(f"step {it}: demand {t} over budget {b} and the watchdog "
-                 "did not raise it")
+    demand = [(a, b, int(t), bud) for a, b, t, bud, _ in record]
+    checks = [i for i, (a, b, _, _) in enumerate(demand)
+              if b > a or b % k == 0]
+    over = [i for i in checks if demand[i][2] > demand[i][3]]
+    for i in over:
+        after = [c for c in checks if c > i]
+        if not after or after[0] + 1 >= len(demand):
+            continue
+        if max(d[3] for d in demand[i + 1:after[0] + 2]) <= demand[i][3]:
+            a, b, t, bud = demand[i]
+            fail(f"iterations {a}-{b}: demand {t} over budget {bud} and "
+                 "the watchdog did not raise it")
+    # The graph: replayed, and captured anew only after an event that
+    # replaces what it baked in (densify, a budget change), plus once.
+    g = trainer.graph
+    blocks = [b - a + 1 for a, b, *_ in record if b > a]
+    densify_events = len([it for it in range(densify_from + 1,
+                                             densify_until)
+                          if it % interval == 0])
+    budget_changes = sum(demand[i][3] != demand[i - 1][3]
+                         for i in range(1, len(demand)))
+    if g.replays != sum(blocks) - g.captures:
+        fail(f"{g.replays} replays for {len(blocks)} blocks of "
+             f"{sum(blocks)} steps and {g.captures} captures")
+    if g.replays <= 0 or g.captures > densify_events + budget_changes + 1:
+        fail(f"graph: {g.captures} captures, {g.replays} replays "
+             f"({densify_events} densify events, {budget_changes} budget "
+             "changes)")
     if [r["iter"] for r in tests] != [1, n_iter]:
         fail(f"test evaluations at {[r['iter'] for r in tests]}")
     rise = tests[-1]["test_psnr"] - tests[0]["test_psnr"]
@@ -661,15 +712,21 @@ def train_path(scene_dir: str, out_dir: str):
         initial_points=n_init, capacity=trainer.state.capacity,
         n_alive=int(trainer.state.num_alive), logged=steps,
         test_psnr=[r["test_psnr"] for r in tests], psnr_rise_db=rise,
-        overflow_steps=len(over), overflow_events=trainer.overflow_events,
+        blocks=blocks, single_steps=len(record) - len(blocks),
+        captures=g.captures, replays=g.replays,
+        capture_seconds=g.capture_seconds, densify_events=densify_events,
+        budget_changes=budget_changes,
+        overflow_checks_over=len(over),
+        overflow_events=trainer.overflow_events,
         entry_budget=trainer.config.entry_budget,
-        max_demand=max(t for _, t, _ in demand))
+        max_demand=max(t for _, _, t, _ in demand))
 
 
 def train_rate(trainer, scene) -> dict:
-    """Phase 8: TRAIN_TIMED Trainer.step calls at SH degree 3 with no SH
-    ramp, densify event or budget probe inside the window (iterations
-    10_004.. avoid multiples of 40 and 1000)."""
+    """Phase 8: Trainer.step and Trainer.step_block at the trained state,
+    SH degree 3, in turns (step, block, block, step) of TRAIN_BLOCK
+    iterations each, on the host clock; a warm-up turn of each first (the
+    block's capture happens there)."""
     import random
 
     import torch
@@ -678,24 +735,117 @@ def train_rate(trainer, scene) -> dict:
     n_train = len(scene.data.train)
     gts = torch.as_tensor(scene.data.train.images, device=DEVICE)
     cams = [scene.cam_arrays("train", i) for i in range(n_train)]
+    stacks = scene.cam_stack("train")
     trainer.active_sh_degree = trainer.max_sh_degree
     rnd = random.Random(1)
-    it0 = 10_001
-    for it in range(it0, it0 + 3):
-        vi = rnd.randint(0, n_train - 1)
-        trainer.step(it, cams[vi], gts[vi], w, h)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for it in range(it0 + 3, it0 + 3 + TRAIN_TIMED):
-        vi = rnd.randint(0, n_train - 1)
-        m = trainer.step(it, cams[vi], gts[vi], w, h)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    return dict(it_per_s=TRAIN_TIMED / seconds,
-                ms_per_step=seconds / TRAIN_TIMED * 1e3,
+    # Iterations 10_001.. in windows [40 m + 1, 40 m + 39]: no SH ramp,
+    # and no multiple of the densify interval (40), so no probe inside.
+    windows = iter(range(10_001, 10 ** 9, 40))
+
+    def turn(mode):
+        first = next(windows)
+        vis = [rnd.randint(0, n_train - 1) for _ in range(TRAIN_BLOCK)]
+        if mode == "block":
+            m = trainer.step_block(first, vis, stacks, gts, w, h,
+                                   n_steps=TRAIN_BLOCK)
+        else:
+            for i, v in enumerate(vis):
+                m = trainer.step(first + i, cams[v], gts[v], w, h)
+        torch.cuda.synchronize()
+        return m
+
+    turn("step")
+    turn("block")
+    turns = []
+    for mode in ("step", "block", "block", "step"):
+        captures = trainer.graph.captures
+        t0 = time.perf_counter()
+        m = turn(mode)
+        seconds = time.perf_counter() - t0
+        turns.append(dict(mode=mode, it_per_s=TRAIN_BLOCK / seconds,
+                          ms_per_step=seconds / TRAIN_BLOCK * 1e3,
+                          captures=trainer.graph.captures - captures,
+                          loss=float(m["loss"])))
+
+    def mean(mode):
+        return sum(t["it_per_s"] for t in turns if t["mode"] == mode) / 2
+
+    return dict(step_it_per_s=mean("step"), block_it_per_s=mean("block"),
+                turns=turns, steps_per_turn=TRAIN_BLOCK,
+                captures=trainer.graph.captures,
+                capture_seconds=trainer.graph.capture_seconds,
                 n_alive=int(trainer.state.num_alive),
-                entry_budget=trainer.config.entry_budget,
-                last_loss=float(m["loss"]))
+                entry_budget=trainer.config.entry_budget)
+
+
+def block_against_eager(trainer, scene) -> dict:
+    """Phase 8b: one block of BLOCK_CHECK steps replayed from a fresh
+    capture against the same steps run eagerly (twice, for the spread of
+    eager runs), from copies of the trained state at its budget: every
+    state tensor and the metrics."""
+    import dataclasses
+
+    import torch
+
+    from wheat3dgs_tpu_torch.models import gaussians as G
+    from wheat3dgs_tpu_torch.training import LAST_METRICS, Trainer
+
+    w, h = scene.image_size
+    n_train = len(scene.data.train)
+    gts = torch.as_tensor(scene.data.train.images, device=DEVICE)
+    stacks = scene.cam_stack("train")
+    vis = [(3 * i + 1) % n_train for i in range(BLOCK_CHECK)]
+    it0 = 20_001
+
+    def copy():
+        st = G.state_from_numpy(**G.state_to_numpy(trainer.state)._asdict(),
+                                device=DEVICE)
+        tr = Trainer(st, trainer.opt, trainer.extent, trainer.max_sh_degree,
+                     config=trainer.config, adaptive_occupancy=False)
+        tr.active_sh_degree = trainer.active_sh_degree
+        return tr
+
+    graphed = copy()
+    mg = graphed.step_block(it0, vis, stacks, gts, w, h,
+                            n_steps=BLOCK_CHECK)
+    runs = []
+    for _ in range(2):
+        tr = copy()
+        for i, v in enumerate(vis):
+            m = tr.step(it0 + i, scene.cam_arrays("train", v), gts[v], w, h)
+        runs.append((tr, m))
+    torch.cuda.synchronize()
+
+    def diff(a, ma, b, mb):
+        """Max |a - b| over every state tensor and metric, by name."""
+        out = {}
+        for f in G.PARAM_FIELDS:
+            out[f] = getattr(a.state.params, f) - getattr(b.state.params, f)
+            out["mu." + f] = a.state.adam.mu[f] - b.state.adam.mu[f]
+            out["nu." + f] = a.state.adam.nu[f] - b.state.adam.nu[f]
+        for f in G.STAT_FIELDS:
+            out[f] = getattr(a.state, f) - getattr(b.state, f)
+        for k in LAST_METRICS:
+            out[k] = (ma[k] - mb[k]).double()
+        return {k: float(v.abs().max()) for k, v in out.items()}
+
+    (e1, m1), (e2, m2) = runs
+    graph_eager = diff(graphed, mg, e1, m1)
+    eager_eager = diff(e1, m1, e2, m2)
+    bad = [k for k in graph_eager if graph_eager[k] > eager_eager[k]]
+    if bad:
+        fail(f"replayed block against eager steps beyond the eager spread: "
+             f"{ {k: (graph_eager[k], eager_eager[k]) for k in bad} }")
+    if not torch.equal(graphed.state.alive, e1.state.alive):
+        fail("replayed block: alive mask differs from eager steps")
+    return dict(steps=BLOCK_CHECK, views=vis, first_iteration=it0,
+                bit_identical=not any(graph_eager.values()),
+                eager_runs_bit_identical=not any(eager_eager.values()),
+                max_abs_graph_vs_eager=max(graph_eager.values()),
+                max_abs_eager_vs_eager=max(eager_eager.values()),
+                captures=graphed.graph.captures,
+                replays=graphed.graph.replays,
+                capture_seconds=graphed.graph.capture_seconds)
 
 
 def check_seg_kernels(scene, scene_dir: str):
@@ -1243,12 +1393,21 @@ def main() -> None:
                                      os.path.join(WORK, "train_model"))
     say("train_path", **tp)
 
-    # 8. steady training rate
+    print(f"train_graph: {tp['captures']} captures "
+          f"({', '.join(f'{x:.2f}' for x in tp['capture_seconds'])} s), "
+          f"{tp['replays']} replays in {len(tp['blocks'])} blocks and "
+          f"{tp['single_steps']} single steps", flush=True)
+
+    # 8. steady training rate, single steps and blocks in turns
     rate = train_rate(trainer, tscene)
     say("train_rate", **rate)
-    print(f"train_step: {rate['it_per_s']:.3f} it/s at "
+    print(f"train_step: {rate['step_it_per_s']:.3f} it/s, train_step_block:"
+          f" {rate['block_it_per_s']:.3f} it/s at "
           f"{BENCH['width']}x{BENCH['height']}, {rate['n_alive']} splats, "
           f"SH 3 on {smi}", flush=True)
+
+    # 8b. a replayed block against the same steps run eagerly
+    say("block_vs_eager", **block_against_eager(trainer, tscene))
     del trainer, tscene
 
     # 9. segmentation kernels against their plain versions

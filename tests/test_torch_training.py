@@ -1,14 +1,16 @@
 """Parity of the port's training step, Trainer and training CLI
 (wheat3dgs_tpu_torch.training, apps/train_vanilla) with the JAX package's.
 
-- One `train_step` from the same state (live and dead slots) and view as
-  JAX's `train_step` on its XLA backend with 32-pixel tiles (the port's
-  tile; the image depends on it, see tests/test_torch_train_raster.py) and
-  caps that crop nothing. The loss within rel 1e-4; the gradients, read
-  from the first Adam moments (mu = 0.1 g), the second moments, and the
-  densification statistics within 2% of each field's max |value| (float32
-  sums in another order through projection, SH and SSIM); the visibility
-  counts and screen radii exactly.
+- One `train_step` (its scalar row built by `step_scalars` for iteration 1
+  and Adam's first update) from the same state (live and dead slots) and
+  view as JAX's `train_step` on its XLA backend with 32-pixel tiles (the
+  port's tile; the image depends on it, see
+  tests/test_torch_train_raster.py) and caps that crop nothing. The loss
+  within rel 1e-4; the gradients, read from the first Adam moments (mu =
+  0.1 g), the second moments, and the densification statistics within 2%
+  of each field's max |value| (float32 sums in another order through
+  projection, SH and SSIM); the visibility counts and screen radii
+  exactly.
 - The Trainer's entry budget equals JAX's
   pick_entry_budget(entry_demand_probe(...)).
 - The CLI (`--device cpu`) on a tiny scene made by the port's generator:
@@ -40,6 +42,18 @@ from wheat3dgs_tpu_torch.render.pipeline import entry_demand_probe
 
 FIELDS = TG.PARAM_FIELDS
 W, H = 48, 32
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: these tests run tiny tensors, where torch's
+    thread pool only adds barrier waits, and on a machine loaded by
+    parallel test workers those waits multiply the run time (the CLI test
+    under five busy cores: 36 s with one thread, 313 s with eight)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _scene(n=40, cap=64, seed=5):
@@ -97,9 +111,11 @@ def test_train_step_matches_jax():
     jnew, jm = JT.train_step(jst, *jcam, jnp.asarray(gt), jnp.asarray(bg),
                              jnp.int32(1), sh_degree=1, width=W, height=H,
                              opt=JOpt(), config=jconf, extent=2.0)
+    # Iteration 1, Adam's first update: the step's scalar row.
+    row = TT.step_scalars(1, tst.adam.step + 1, 1, TOpt(), 2.0)[0]
     tnew, tm = TT.train_step(tst, tcam, torch.tensor(gt), torch.tensor(bg),
-                             1, sh_degree=1, width=W, height=H, opt=TOpt(),
-                             extent=2.0)
+                             row, sh_degree=1, width=W, height=H, opt=TOpt())
+    tnew.adam.step += 1
     assert float(tm["loss"]) == pytest.approx(float(jm["loss"]), rel=1e-4)
     assert float(tm["l1"]) == pytest.approx(float(jm["l1"]), rel=1e-4)
     assert float(tm["psnr"]) == pytest.approx(float(jm["psnr"]), rel=1e-4)

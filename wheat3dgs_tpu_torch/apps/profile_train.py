@@ -14,10 +14,16 @@ runs --warmup Trainer steps (no densification), then at SH degree 3:
   the feature table and composite_train_fwd, the loss forward, its
   backward to the image, composite_bwd + segsum, autograd of the feature
   table / projection / SH, Adam, and the densification statistics;
-- times whole Trainer.step calls on the host clock (ends in a
-  synchronize);
-- traces --steps Trainer.step calls with torch.profiler and reports the
-  device time by kernel and the device's busy share of the wall time.
+- times the two ways the CLI runs steps at the same state, in turns
+  (step, block, block, step), each turn BLOCK iterations that end before
+  the next multiple of 40 (the bench's densify interval, so no probe runs
+  inside): Trainer.step per iteration and one Trainer.step_block (a step
+  replayed from a CUDA graph); ms per step and it/s on the host clock
+  (each turn ends in a synchronize), and the graph's captures and the
+  seconds each took;
+- traces one turn of each mode with torch.profiler and reports the device
+  time per step, the device's busy share of the wall time and, for
+  Trainer.step, the device time by kernel.
 Prints one JSON line and writes the profiler table to --out. Needs a card.
 """
 
@@ -32,6 +38,10 @@ import time
 from argparse import ArgumentParser
 
 import torch
+
+# Iterations per timed turn: a window [40 m + 1, 40 m + 39] holds no
+# multiple of the densify interval (40), so no budget probe runs inside.
+BLOCK = 39
 
 
 class _Stages:
@@ -59,11 +69,11 @@ def _staged_step(stages: _Stages, state, cam, gt, bg, it, trainer, w, h):
     """training.train_step, split into its stages (the same calls in the
     same order)."""
     from ..models import gaussians as G
-    from ..models.optim import adam_step
+    from ..models.optim import adam_update
     from ..ops import cuda_raster as CR
     from ..ops.losses import l1_loss, ssim
     from ..ops.projection import project_gaussians
-    from ..training import lr_tree
+    from ..training import SCALARS, step_scalars
 
     opt, deg = trainer.opt, trainer.active_sh_degree
     params = state.params.as_dict()
@@ -111,9 +121,13 @@ def _staged_step(stages: _Stages, state, cam, gt, bg, it, trainer, w, h):
     inputs = list(leaves.values()) + [ndc]
     grads = stages.run("autograd_features_projection_sh",
                        lambda: torch.autograd.grad(feat, inputs, d_feat))
-    stages.run("adam", lambda: adam_step(
+    row = step_scalars(it, state.adam.step + 1, 1, opt, trainer.extent)[0]
+    row = row.pin_memory().to(state.device, non_blocking=True)
+    n_lr = len(SCALARS) - 2
+    stages.run("adam", lambda: adam_update(
         state.adam, dict(zip(leaves, grads[:-1])), params,
-        lr_tree(it, opt, trainer.extent)))
+        dict(zip(leaves, row[:n_lr])), row[n_lr], row[n_lr + 1]))
+    state.adam.step += 1
     stages.run("densification_stats", lambda: G.add_densification_stats(
         state, grads[-1], splats.radius))
 
@@ -151,7 +165,8 @@ def main(argv=None):
     n_train = len(scene.data.train)
     cams = [scene.cam_arrays("train", i) for i in range(n_train)]
     gts = torch.as_tensor(scene.data.train.images, device=dev)
-    opt = OptimizationParams(densify_from_iter=10 ** 9)
+    opt = OptimizationParams(densify_from_iter=10 ** 9,
+                             densification_interval=40)
     trainer = Trainer(scene.gaussians, opt, scene.cameras_extent,
                       sh_degree=3)
     for it in range(1, args.warmup + 1):
@@ -169,49 +184,79 @@ def main(argv=None):
                      gts[i % n_train], trainer.bg, it0 + i, trainer, w, h)
     stage_ms = stages.ms(args.steps)
 
-    def steps(first):
-        for i in range(args.steps):
-            trainer.step(first + i, cams[i % n_train], gts[i % n_train],
-                         w, h)
+    stacks = scene.cam_stack("train")
+    windows = iter(range(it0, 10 ** 9, 40))
 
-    steps(it0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    steps(it0)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / args.steps * 1e3
+    def turn(mode):
+        """BLOCK iterations of the next window, by `mode`; ends in a
+        synchronize."""
+        first = next(windows)
+        vis = [(first + i) % n_train for i in range(BLOCK)]
+        if mode == "block":
+            trainer.step_block(first, vis, stacks, gts, w, h, n_steps=BLOCK)
+        else:
+            for i, v in enumerate(vis):
+                trainer.step(first + i, cams[v], gts[v], w, h)
+        torch.cuda.synchronize()
+
+    turn("step")      # warm-up of both modes; the block captures here
+    turn("block")
+    turns = []
+    for mode in ("step", "block", "block", "step"):
+        captures = trainer.graph.captures
+        t0 = time.perf_counter()
+        turn(mode)
+        ms = (time.perf_counter() - t0) / BLOCK * 1e3
+        turns.append({"mode": mode, "ms_per_step": ms, "it_per_s": 1e3 / ms,
+                      "captures": trainer.graph.captures - captures})
 
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        steps(it0)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = prof.key_averages()
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_us = sum(e.self_device_time_total for e in kernels)
-    table = events.table(sort_by="self_device_time_total", row_limit=40)
+    traced = {}
+    for mode in ("step", "block"):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            turn(mode)
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = prof.key_averages()
+        kernels = [e for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        device_us = sum(e.self_device_time_total for e in kernels)
+        traced[mode] = {
+            "device_busy_share": device_us / wall_us if wall_us else None,
+            "device_ms_per_step": device_us / BLOCK / 1e3,
+            "host_ms_per_step": wall_us / BLOCK / 1e3}
+        if mode == "step":
+            table = events.table(sort_by="self_device_time_total",
+                                 row_limit=40)
+            top = sorted(kernels, key=lambda e: -e.self_device_time_total)
+            top_us = {e.key: e.self_device_time_total / BLOCK
+                      for e in top[:15]}
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "kernels.txt"), "w") as f:
         f.write(table)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
     n_alive = int(trainer.state.num_alive)
     shutil.rmtree(work, ignore_errors=True)
     print(table)
+
+    def mean(mode, key):
+        vals = [t[key] for t in turns if t["mode"] == mode]
+        return sum(vals) / len(vals)
+
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "splats": n_alive,
         "capacity": trainer.state.capacity, "width": w, "height": h,
         "sh_degree": 3, "entry_budget": trainer.config.entry_budget,
-        "step_ms_host": step_ms, "it_per_s": 1e3 / step_ms,
         "stage_ms": stage_ms, "stage_ms_sum": sum(stage_ms.values()),
-        "profiled_steps": args.steps,
-        "device_busy_share": device_us / wall_us if wall_us else None,
-        "device_ms_per_step": device_us / args.steps / 1e3,
-        "top_device_us_per_step": {
-            e.key: e.self_device_time_total / args.steps for e in top}}))
+        "block_steps": BLOCK, "turns": turns,
+        "step_ms_host": mean("step", "ms_per_step"),
+        "block_ms_host": mean("block", "ms_per_step"),
+        "it_per_s": {m: mean(m, "it_per_s") for m in ("step", "block")},
+        "captures": trainer.graph.captures,
+        "capture_seconds": trainer.graph.capture_seconds,
+        "replays": trainer.graph.replays, "traced": traced,
+        "top_device_us_per_step": top_us}))
 
 
 if __name__ == "__main__":

@@ -82,7 +82,11 @@ def _split_wheat(metas_sorted: List[CameraMeta]):
 def read_colmap_scene(source_path: str, images_dir: str = "images",
                       eval_split: bool = True, resolution: int = 1,
                       resolution_scale: float = 1.0,
+                      load_images: bool = True,
                       device="cuda") -> SceneData:
+    """The COLMAP scene at `source_path`. load_images=False reads no image
+    file: each split's images are zeros of the split's shape (the JAX
+    reader's placeholder), for callers that need only the cameras."""
     sparse = os.path.join(source_path, "sparse", "0")
     intr, extr, points = colmap.load_colmap_model(sparse)
 
@@ -143,8 +147,11 @@ def read_colmap_scene(source_path: str, images_dir: str = "images",
         orig_w, orig_h = poses[sel[0].image_name]
         (w, h), total_scale = resolve_resolution(orig_w, orig_h, resolution,
                                                  resolution_scale)
-        images = np.stack([np.clip(load_image(m.image_path, (w, h))[:3],
-                                   0.0, 1.0) for m in sel])
+        if load_images:
+            images = np.stack([np.clip(load_image(m.image_path, (w, h))[:3],
+                                       0.0, 1.0) for m in sel])
+        else:
+            images = np.zeros((len(sel), 3, h, w), np.float32)
         for m in sel:
             m.resolution_scale = total_scale
         cams = make_camera_batch(

@@ -15,7 +15,6 @@ in [0, 1].
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -41,10 +40,15 @@ def psnr(pred, gt):
     return out if pred.dim() == 4 else out[0]
 
 
-def _gaussian_window(window_size: int, sigma: float) -> np.ndarray:
-    xs = np.arange(window_size) - window_size // 2
-    g = np.exp(-(xs ** 2) / (2.0 * sigma ** 2))
-    return (g / g.sum()).astype(np.float32)
+def _gaussian_window(window_size: int, sigma: float,
+                     device) -> torch.Tensor:
+    """The normalised window, computed in float64 on `device` and cast
+    once: no host-to-device copy, which a CUDA graph capture of the
+    training step would refuse."""
+    xs = torch.arange(window_size, dtype=torch.float64,
+                      device=device) - window_size // 2
+    g = torch.exp(-(xs ** 2) / (2.0 * sigma ** 2))
+    return (g / g.sum()).to(torch.float32)
 
 
 def _depthwise_blur(img: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
@@ -60,8 +64,7 @@ def _depthwise_blur(img: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
 
 def _ssim_map(img1: torch.Tensor, img2: torch.Tensor,
               window_size: int) -> torch.Tensor:
-    window = torch.as_tensor(_gaussian_window(window_size, 1.5),
-                             device=img1.device)
+    window = _gaussian_window(window_size, 1.5, img1.device)
     mu1 = _depthwise_blur(img1, window)
     mu2 = _depthwise_blur(img2, window)
     mu1_sq, mu2_sq, mu1_mu2 = mu1 * mu1, mu2 * mu2, mu1 * mu2

@@ -4,8 +4,9 @@ Counterpart of wheat3dgs_tpu/scene.py (reference Scene, scene/__init__.py:
 30-117): loads the COLMAP scene, then either loads a saved iteration
 (`point_cloud/iteration_<it>/point_cloud.ply`) or creates the Gaussians from
 the scene's point cloud and writes input.ply / cameras.json into the model
-dir, and exposes the train/test cameras and images. The Blender reader
-waits for a later slice of the port.
+dir, and exposes the train/test cameras and images (load_images=False
+reads no image file, for callers that need only the cameras). The Blender
+reader waits for a later slice of the port.
 """
 
 from __future__ import annotations
@@ -28,8 +29,8 @@ from .models.serialization import load_ply, save_ply
 class Scene:
     def __init__(self, model: ModelParams, sh_degree: int = 3,
                  load_iteration: Optional[int] = None, shuffle: bool = True,
-                 seed: int = 0, capacity: Optional[int] = None,
-                 device="cuda"):
+                 seed: int = 0, load_images: bool = True,
+                 capacity: Optional[int] = None, device="cuda"):
         self.device = resolve_device(device)
         self.model_path = model.model_path
         self.sh_degree = sh_degree
@@ -37,7 +38,7 @@ class Scene:
             self.data: SceneData = read_colmap_scene(
                 model.source_path, images_dir=model.images,
                 eval_split=model.eval, resolution=model.resolution,
-                device=self.device)
+                load_images=load_images, device=self.device)
         elif os.path.exists(os.path.join(model.source_path,
                                          "transforms_train.json")):
             raise NotImplementedError(
