@@ -64,7 +64,34 @@ when run outside a checkout of the repo. Phases, each reported on a line:
    against the generator's ground truth (gt_points.npz);
 11. evaluation path: `apps/eval_wheatgs_app.main` on the same model
    (all_counts.pt and the test split's segmentation / overlay PNGs);
-12. the scan probe: each kind of the kernel against its plain version on
+12. metrics: `apps/metrics_app.main` on phase 7's test renders (the
+   trained model, 1600x1200) with each LPIPS stand-in net (vgg, alex,
+   squeeze), the launch counters reset before and read after (no
+   rasterizer kernel runs there): results.json / per_view.json schema and
+   LPIPS_note, each view's SSIM / PSNR / LPIPS against the port's CPU
+   values on the same PNGs, seconds per image from each net's second run
+   (the first, which may write the stand-in weights, timed apart), one
+   image's PNG reads, SSIM + PSNR and LPIPS forward timed alone;
+13. 360 field: `apps/render_360_app.main --render_type field` on the
+   stand-in model and phase 10's experiment with run_wheat_3dgs.sh's
+   arguments (200 frames at 800x600, the head overlay), counters reset
+   just before and read just after: the labels and the video (the app
+   itself raises on a frame over its probed budget), frame 0 against the
+   plain compositors (colour image within the composite tolerance, the
+   overlaid head apart on at most OVERLAY_OFF_MAX of the pixels, no other
+   channel more than 1 level apart), frames per second on the host clock
+   over the orbits and over the whole run (its budget probes, lift and
+   encoding timed apart), and the device's busy share over a few frames
+   (torch.profiler);
+14. 360 head: the same with `--render_type head` (100 frames per head at
+   533x400), one video per head PLY without a letter suffix;
+15. viewer: `apps/viewer_app.build_viewer` with the field run's labels,
+   served on a free port in a thread: /info, /teleport and 20 /render
+   requests at 960x720 with and without the overlay and with a head
+   whitelist, each a JPEG of that size, ms per request, re-probes, one
+   overlaid frame's image before JPEG against the plain compositors (as
+   the 360 frame, in float);
+16. the scan probe: each kind of the kernel against its plain version on
    the probe's input and a seeded normal block, and at the cluster's edge
    shapes (8 rows, fewer than its CTAs; 1000 rows, not a multiple of them;
    the probe's 1024 is the most it holds), two launches bit-identical,
@@ -72,7 +99,7 @@ when run outside a checkout of the repo. Phases, each reported on a line:
    refused; timed at 256 and 64 steps (the slope is the time a step
    costs) beside a torch.cumsum loop, eager and replayed from a CUDA graph;
    then `apps/prof_scan.main` with the counters reset;
-13. a `kernels` JSON line, then the device line last.
+17. a `kernels` JSON line, then the device line last.
 Work files go to `_smoke_work/` in the checkout and are removed on success.
 """
 
@@ -133,6 +160,29 @@ TRAIN_ITERS = 300
 TRAIN_BLOCK = 39
 BLOCK_CHECK = 8
 DEVICE = "cuda"
+# The rasterizer's five kernels (plain_kernels() routes them all to their
+# plain versions).
+ALL_KERNELS = ("decode_cull", "composite_fwd", "composite_train_fwd",
+               "composite_bwd", "segsum")
+# Phases 12-15 (run_wheat_3dgs.sh's step 2 and 4 arguments, the viewer's
+# CLI default size).
+FIELD_360 = dict(n_frames=200, framerate=20, elevation=45)
+HEAD_360 = dict(n_frames=100, framerate=10, elevation=30)
+VIEWER_REQUESTS = 20
+LPIPS_NETS = ("vgg", "alex", "squeeze")
+# metrics on the card against the port's CPU values on the same PNGs:
+# SSIM and PSNR relative, LPIPS relative (float32 convolutions summed in
+# another order by cuDNN and the CPU's kernels).
+METRIC_REL = 1e-5
+LPIPS_REL = 1e-4
+# An orbit or viewer frame against the same frame through the plain
+# compositors: the colour image at COMPOSITE_ATOL / COMPOSITE_RTOL, and no
+# channel of the frame more than 1 uint8 level apart, except on pixels
+# whose overlaid head differs. Those are counted apart and held under
+# OVERLAY_OFF_MAX of the pixels (a head whose claim on a pixel sits at
+# eval_obj_labels' alpha 0.5 threshold may flip it).
+OVERLAY_OFF_MAX = 1e-3
+BUSY_FRAMES = 5
 # cuda_time_ms, bound, fwd_bound and smi_line are bound in main(), from the
 # port's utils/cuda_timing, once the port is found next to this script.
 
@@ -357,10 +407,9 @@ def plain_kernels():
     card's tensors for the duration (the all-plain reference path)."""
     from wheat3dgs_tpu_torch.ops import cuda_raster as CR
 
-    names = ("decode_cull", "composite_train_fwd", "composite_bwd", "segsum")
-    saved = {k: getattr(CR, k) for k in names}
+    saved = {k: getattr(CR, k) for k in ALL_KERNELS}
     try:
-        for k in names:
+        for k in ALL_KERNELS:
             setattr(CR, k, getattr(CR, k + "_plain"))
         yield
     finally:
@@ -1136,23 +1185,12 @@ def seg_path(scene_dir: str, model_dir: str) -> dict:
              f"median purity {median_purity} (gate {SEG_MEDIAN_PURITY})")
 
     # Device busy share over association steps of the run's context.
-    from torch.profiler import ProfilerActivity, profile
-
     ctx = ctxs[0]
     counts = ctx.cached_counts(0, ctx.mask_paths[0][0])
     ctx.match_device(counts)
     reps = 5
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            ctx.match_device(counts)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_us = sum(e.self_device_time_total for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    busy = device_busy(lambda: [ctx.match_device(counts)
+                                for _ in range(reps)])
     return dict(
         seconds=seconds, launches=launches, num_heads=num_heads,
         heads_with_letter_saves=len(plys), results_rows=len(rows) - 1,
@@ -1166,10 +1204,10 @@ def seg_path(scene_dir: str, model_dir: str) -> dict:
         masks=int(sum(len(p) for p in ctx.mask_paths)),
         purity=purity, median_purity=median_purity,
         gt_heads_covered=covered,
-        match_step={"ms_host": wall_us / reps / 1e3,
-                    "device_busy_share": device_us / wall_us,
-                    "top_device_us": {e.key: e.self_device_time_total / reps
-                                      for e in top}})
+        match_step={"ms_host": busy["ms_host"] / reps,
+                    "device_busy_share": busy["device_busy_share"],
+                    "top_device_us": {k: v / reps for k, v in
+                                      busy["top_device_us"].items()}})
 
 
 def eval_path(model_dir: str) -> dict:
@@ -1213,8 +1251,450 @@ def eval_path(model_dir: str) -> dict:
                 label_rows=int(labels.shape[0]), nonzero_share=nonzero)
 
 
+def device_busy(fn) -> dict:
+    """Host ms of fn() (which must end with the device idle, e.g. by
+    reading a result) and the share of it the device spent in kernels,
+    from torch.profiler, with its kernels by time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return {"ms_host": wall_us / 1e3, "device_busy_share": device_us / wall_us,
+            "top_device_us": {e.key: e.self_device_time_total for e in top}}
+
+
+def frame_parts(state, cam, width, height, config, labels=None,
+                nonempty=None, **render_kw):
+    """One frame's two renders as the 360 app and the viewer make them:
+    the (3, H, W) colour image clipped to [0, 1] and, given the head
+    labels, the (H, W) head-id map of eval_obj_labels, as numpy."""
+    import numpy as np
+
+    from wheat3dgs_tpu_torch.render.pipeline import render_fwd
+    from wheat3dgs_tpu_torch.seg.eval import eval_obj_labels
+
+    out = render_fwd(state, *cam, width, height, config=config, **render_kw)
+    ids = None
+    if labels is not None:
+        ids = eval_obj_labels(state, labels, *cam, width=width,
+                              height=height, config=config,
+                              nonempty=nonempty).cpu().numpy()
+    return np.clip(out.color.cpu().numpy(), 0, 1), ids
+
+
+def check_frame(where: str, parts, got) -> dict:
+    """parts() (frame_parts of one frame) with the kernels and through the
+    plain compositors: the colour images within COMPOSITE_ATOL /
+    COMPOSITE_RTOL and the head-id maps apart on at most OVERLAY_OFF_MAX
+    of the pixels. `got`, the app's frame from the kernel path, is held to
+    the plain path's frame on every pixel whose head agrees: a (H, W, 3)
+    uint8 frame with no channel more than 1 level apart, a (3, H, W)
+    float image within the colour tolerance."""
+    import numpy as np
+
+    from wheat3dgs_tpu_torch.utils import image_ops
+
+    colour, ids = parts()
+    with plain_kernels():
+        ref, ref_ids = parts()
+    err = np.abs(colour - ref)
+    if not (err <= COMPOSITE_ATOL + COMPOSITE_RTOL * np.abs(ref)).all():
+        fail(f"{where}: colour image differs from the plain compositors by "
+             f"{float(err.max())} (atol {COMPOSITE_ATOL}, rtol "
+             f"{COMPOSITE_RTOL})")
+    agree = np.ones(ref.shape[1:], bool)
+    if ref_ids is not None:
+        agree = ids == ref_ids
+        ref = image_ops.overlay_image(
+            ref, image_ops.visualize_obj(ref_ids).astype(np.float32) / 255.0)
+    overlay_off = 1.0 - float(agree.mean())
+    if overlay_off > OVERLAY_OFF_MAX:
+        fail(f"{where}: the overlaid head differs from the plain "
+             f"compositors' on {overlay_off:.2%} of the pixels (bound "
+             f"{OVERLAY_OFF_MAX:.2%})")
+    if got.dtype == np.uint8:
+        ref = (ref.transpose(1, 2, 0) * 255).astype(np.uint8)
+        agree = agree[..., None]
+    if got.shape != ref.shape:
+        fail(f"{where}: frame {got.shape}, plain compositors' {ref.shape}")
+    if got.dtype == np.uint8:
+        diff = np.abs(got.astype(np.int32) - ref.astype(np.int32))
+        bad = int(((diff > 1) & agree).sum())
+    else:
+        diff = np.abs(got - ref)
+        bad = int(((diff > COMPOSITE_ATOL + COMPOSITE_RTOL * np.abs(ref))
+                   & agree).sum())
+    if bad:
+        fail(f"{where}: {bad} channels of the frame differ from the plain "
+             "compositors' where their heads agree")
+    return dict(colour_max_abs_err=float(err.max()),
+                overlay_pixels_off=overlay_off, channels_off=bad)
+
+
+def metrics_path(model_dir: str) -> dict:
+    """Phase 12: apps/metrics_app on the trained model's test renders,
+    twice per LPIPS net (the second run timed), with the launch counters
+    read around all the runs; each net's results.json / per_view.json held
+    to the schema and to the port's CPU values on the same PNGs."""
+    import torch
+
+    from wheat3dgs_tpu_torch.apps import metrics_app
+    from wheat3dgs_tpu_torch.ops import cuda_raster as CR
+    from wheat3dgs_tpu_torch.ops import lpips
+    from wheat3dgs_tpu_torch.ops.losses import psnr, ssim
+
+    method = f"ours_{TRAIN_ITERS}"
+    renders = os.path.join(model_dir, "test", method, "renders")
+    names = sorted(os.listdir(renders))
+
+    def read():
+        out = []
+        for f in ("results.json", "per_view.json"):
+            with open(os.path.join(model_dir, f)) as fh:
+                out.append(json.load(fh))
+        return out
+
+    CR.reset_launches()
+    nets, cpu_seconds = {}, {}
+    for net in LPIPS_NETS:
+        argv = ["-m", model_dir, "--lpips_weights", f"auto:{net}",
+                "--device", DEVICE]
+        # The first run also writes the stand-in weights (on first use of
+        # the net) and meets cuDNN's first calls; the second is timed.
+        runs = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            metrics_app.main(argv)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+        nets[net] = {"first_run_seconds": runs[0], "seconds": runs[1]}
+        nets[net]["full"], nets[net]["per_view"] = read()
+    launches = dict(CR.launches)
+    if any(launches.values()):
+        fail(f"the metrics path launched rasterizer kernels: {launches}")
+
+    for net, r in nets.items():
+        full, per_view = r.pop("full"), r.pop("per_view")
+        if sorted(full) != [method] or sorted(full[method]) != [
+                "LPIPS", "LPIPS_note", "PSNR", "SSIM"]:
+            fail(f"metrics {net}: results.json {full}")
+        if "untrained" not in full[method]["LPIPS_note"]:
+            fail(f"metrics {net}: LPIPS_note {full[method]['LPIPS_note']!r}")
+        if sorted(per_view[method]) != ["LPIPS", "PSNR", "SSIM"] or any(
+                sorted(v) != names for v in per_view[method].values()):
+            fail(f"metrics {net}: per_view.json names or keys")
+        t0 = time.perf_counter()
+        metrics_app.main(["-m", model_dir, "--lpips_weights", f"auto:{net}",
+                          "--device", "cpu"])
+        cpu_seconds[net] = time.perf_counter() - t0
+        cpu_full, cpu_view = read()
+        worst = {}
+        for k, rel in (("SSIM", METRIC_REL), ("PSNR", METRIC_REL),
+                       ("LPIPS", LPIPS_REL)):
+            errs = [abs(per_view[method][k][n] - cpu_view[method][k][n])
+                    / abs(cpu_view[method][k][n]) for n in names]
+            worst[k] = max(errs)
+            if not worst[k] <= rel:
+                fail(f"metrics {net}: {k} {worst[k]} relative to the CPU "
+                     f"value (bound {rel})")
+        # The parts of one image's time: its two PNG reads on the host,
+        # SSIM + PSNR and the LPIPS forward on the card.
+        fn = lpips.load_lpips(lpips.default_weights(net), device=DEVICE)
+        t0 = time.perf_counter()
+        x, y = (metrics_app.read_image(os.path.join(d, names[0])) for d in
+                (renders, os.path.join(model_dir, "test", method, "gt")))
+        read_ms = (time.perf_counter() - t0) * 1e3
+        x, y = (torch.as_tensor(a, device=DEVICE) for a in (x, y))
+        r.update(seconds_per_image=r["seconds"] / len(names),
+                 png_read_ms=read_ms,
+                 ssim_psnr_ms=cuda_time_ms(
+                     lambda: (ssim(x, y), psnr(x, y)), 5),
+                 lpips_ms=cuda_time_ms(lambda: fn(x, y), 5),
+                 values=full[method], rel_err_vs_cpu=worst,
+                 cpu_seconds=cpu_seconds[net])
+    return dict(images=len(names), size=list(x.shape[1:]), nets=nets,
+                launches=launches)
+
+
+def recorded_360(RA):
+    """Wrap render_360_app's _orbit_frames, orbit_config (the orbit-wide
+    budget probe), labels_from_seg_maps and write_video to record what an
+    app run does and the seconds each takes; returns (record, restore).
+    _orbit_frames itself raises on a frame over its probed budget."""
+    import torch
+
+    saved = {k: getattr(RA, k) for k in ("_orbit_frames", "orbit_config",
+                                         "labels_from_seg_maps",
+                                         "write_video")}
+    rec = {"orbits": [], "probe_seconds": 0.0, "lift_seconds": 0.0,
+           "encode_seconds": 0.0, "videos": []}
+
+    def orbit(*args, **kw):
+        t0 = time.perf_counter()
+        frames = saved["_orbit_frames"](*args, **kw)
+        seconds = time.perf_counter() - t0
+        blank = sum(int(f.std() < 1.0) for f in frames)
+        rec["orbits"].append(dict(args=args, obj_labels=kw.get("obj_labels"),
+                                  frame0=frames[0], frames=len(frames),
+                                  blank=blank, seconds=seconds))
+        return frames
+
+    def probe(*args, **kw):
+        t0 = time.perf_counter()
+        out = saved["orbit_config"](*args, **kw)
+        torch.cuda.synchronize()
+        rec["probe_seconds"] += time.perf_counter() - t0
+        return out
+
+    def labels(*args, **kw):
+        t0 = time.perf_counter()
+        out = saved["labels_from_seg_maps"](*args, **kw)
+        rec["lift_seconds"] += time.perf_counter() - t0
+        return out
+
+    def video(frames, path, fps):
+        t0 = time.perf_counter()
+        out = saved["write_video"](frames, path, fps)
+        rec["encode_seconds"] += time.perf_counter() - t0
+        rec["videos"].append(out)
+        return out
+
+    for k, fn in (("_orbit_frames", orbit), ("orbit_config", probe),
+                  ("labels_from_seg_maps", labels), ("write_video", video)):
+        setattr(RA, k, fn)
+
+    def restore():
+        for k, fn in saved.items():
+            setattr(RA, k, fn)
+    return rec, restore
+
+
+def orbit_checks(RA, rec, where: str, seconds: float) -> dict:
+    """The first orbit's frame 0 against the same frame through the plain
+    compositors (check_frame); no orbit all blank; the device's busy share
+    over BUSY_FRAMES frames of that orbit; frames per second over the
+    orbits alone and over the whole app run of `seconds`, with the run's
+    seconds split into its recorded parts."""
+    import numpy as np
+    import torch
+
+    o = rec["orbits"][0]
+    state, sh, c2ws, fovx, fovy, w, h, bg, config = o["args"]
+    labels = nonempty = None
+    if o["obj_labels"] is not None:
+        labels = torch.as_tensor(np.asarray(o["obj_labels"]),
+                                 device=state.device).to(torch.bool)
+        nonempty = labels.any(dim=1).tolist()
+    cam = RA._orbit_cams(c2ws[:1], fovx, fovy, state.device)[0]
+    plain = check_frame(f"{where} frame 0", lambda: frame_parts(
+        state, cam, w, h, config, labels, nonempty, sh_degree=sh, bg=bg),
+        o["frame0"])
+    blank = [x["blank"] for x in rec["orbits"]]
+    if any(b == x["frames"] for b, x in zip(blank, rec["orbits"])):
+        fail(f"{where}: an orbit with every frame blank ({blank})")
+    n = min(BUSY_FRAMES, len(c2ws))
+    busy = device_busy(lambda: RA._orbit_frames(
+        state, sh, c2ws[:n], fovx, fovy, w, h, bg, config,
+        obj_labels=o["obj_labels"]))
+    busy["frames"] = n
+    busy["ms_per_frame"] = busy["ms_host"] / n
+    frames = sum(x["frames"] for x in rec["orbits"])
+    parts = {k: rec[k] for k in ("probe_seconds", "lift_seconds",
+                                 "encode_seconds")}
+    parts["orbit_seconds"] = sum(x["seconds"] for x in rec["orbits"])
+    parts["other_seconds"] = seconds - sum(parts.values())
+    return dict(frames=frames, size=[w, h], orbits=len(rec["orbits"]),
+                seconds=seconds, fps=frames / parts["orbit_seconds"],
+                fps_run=frames / seconds, **parts,
+                entry_budgets=sorted({x["args"][8].entry_budget
+                                      for x in rec["orbits"]}),
+                plain_check=plain, blank_frames=sum(blank), busy=busy,
+                videos=[os.path.basename(v) for v in rec["videos"]])
+
+
+def field_path(model_dir: str) -> dict:
+    """Phase 13: apps/render_360_app --render_type field on the stand-in
+    model and phase 10's experiment, with the launch counters read around
+    exactly that call."""
+    import numpy as np
+    import torch
+
+    from wheat3dgs_tpu_torch.apps import render_360_app as RA
+    from wheat3dgs_tpu_torch.ops import cuda_raster as CR
+    from wheat3dgs_tpu_torch.seg.pipeline import load_pt
+
+    rec, restore = recorded_360(RA)
+    try:
+        CR.reset_launches()
+        t0 = time.perf_counter()
+        video = RA.main(["-m", model_dir, "--exp_name", "smoke",
+                         "--render_type", "field", "--device", DEVICE]
+                        + [f"--{k}={v}" for k, v in FIELD_360.items()])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(CR.launches)
+    finally:
+        restore()
+    for k in ALL_KERNELS:
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched on the 360 field path")
+    base = os.path.join(model_dir, "wheat-head", "smoke")
+    labels = load_pt(os.path.join(base, "all_obj_labels.pth"))
+    counts = load_pt(os.path.join(base, "all_counts.pth"))
+    if counts.shape != labels.shape or labels.dtype != np.bool_ or \
+            labels.shape[0] < 2:
+        fail(f"360 field: labels {labels.shape} {labels.dtype}, counts "
+             f"{counts.shape}")
+    if rec["videos"] != [video] or not os.path.getsize(video) or \
+            os.path.exists(os.path.join(base, "3DSeg")):
+        fail(f"360 field: video {video}, recorded {rec['videos']}")
+    if rec["orbits"][0]["frames"] != FIELD_360["n_frames"]:
+        fail(f"360 field: {rec['orbits'][0]['frames']} frames")
+    out = orbit_checks(RA, rec, "360 field", seconds)
+    w, h = out["size"]
+    if (w, h) != (BENCH["width"] // 2, BENCH["height"] // 2):
+        fail(f"360 field: frames at {w}x{h}")
+    return dict(launches=launches, video=video,
+                heads_labelled=int(labels[1:].any(axis=1).sum()),
+                label_rows=int(labels.shape[0]), **out)
+
+
+def head_path(model_dir: str) -> dict:
+    """Phase 14: apps/render_360_app --render_type head on the same
+    experiment, with the launch counters read around exactly that call."""
+    import torch
+
+    from wheat3dgs_tpu_torch.apps import render_360_app as RA
+    from wheat3dgs_tpu_torch.ops import cuda_raster as CR
+
+    base = os.path.join(model_dir, "wheat-head", "smoke")
+    plys = sorted(f for f in os.listdir(os.path.join(base, "ply"))
+                  if f.startswith("wh_") and f.endswith(".ply")
+                  and len(f[:-4].split("_")) == 2)
+    rec, restore = recorded_360(RA)
+    try:
+        CR.reset_launches()
+        t0 = time.perf_counter()
+        videos = RA.main(["-m", model_dir, "--exp_name", "smoke",
+                          "--render_type", "head", "--device", DEVICE]
+                         + [f"--{k}={v}" for k, v in HEAD_360.items()])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(CR.launches)
+    finally:
+        restore()
+    for k in ("decode_cull", "composite_fwd"):
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched on the 360 head path")
+    stems = [os.path.splitext(os.path.basename(v))[0] for v in videos]
+    if not plys or stems != [f[3:-4] for f in plys] or any(
+            not os.path.getsize(v) for v in videos):
+        fail(f"360 head: videos {stems} for head PLYs {plys}")
+    if any(o["frames"] != HEAD_360["n_frames"] for o in rec["orbits"]):
+        fail("360 head: an orbit with the wrong frame count")
+    out = orbit_checks(RA, rec, "360 head", seconds)
+    w, h = out["size"]
+    if (w, h) != (BENCH["width"] // 3, BENCH["height"] // 3):
+        fail(f"360 head: frames at {w}x{h}")
+    return dict(launches=launches, heads=len(videos), **out)
+
+
+def viewer_path(scene_dir: str, model_dir: str) -> dict:
+    """Phase 15: apps/viewer_app.build_viewer on the stand-in model with
+    the labels the field run wrote, served on a free port in a thread:
+    /info, /teleport and VIEWER_REQUESTS /render requests at the CLI's
+    960x720, with the launch counters read around them; then one frame's
+    image against the plain compositors."""
+    import io
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from wheat3dgs_tpu_torch.apps import viewer_app
+    from wheat3dgs_tpu_torch.ops import cuda_raster as CR
+    from wheat3dgs_tpu_torch.viewer import serve
+
+    CR.reset_launches()
+    t0 = time.perf_counter()
+    vs, args = viewer_app.build_viewer(["-s", scene_dir, "-m", model_dir,
+                                        "--exp_name", "smoke", "--device",
+                                        DEVICE])
+    build_seconds = time.perf_counter() - t0
+    httpd = serve(vs, host="127.0.0.1", port=0, blocking=False)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        def get(path):
+            with urllib.request.urlopen(base + path, timeout=120) as r:
+                return r.read()
+
+        info = json.loads(get("/info"))
+        tp = json.loads(get("/teleport?i=0"))
+        n_heads = info["n_heads"]
+        if n_heads < 1 or len(info["cameras"]) != 12:
+            fail(f"viewer /info: {n_heads} heads, {len(info['cameras'])} "
+                 "cameras")
+        c = info["center"]
+        views = [(tp["az"], tp["el"], tp["dist"], tp["center"])]
+        views += [(0.8 + 0.3 * i, 0.7, 2 * info["radius"], c)
+                  for i in range(VIEWER_REQUESTS - 1)]
+        heads = ",".join(str(i) for i in range(1, min(n_heads, 3) + 1))
+        kinds = ("plain", "overlay", "overlay_whitelist")
+        times, by_kind = [], {k: [] for k in kinds}
+        for i, (az, el, dist, ctr) in enumerate(views):
+            q = (f"/render?az={az}&el={el}&dist={dist}&cx={ctr[0]}"
+                 f"&cy={ctr[1]}&cz={ctr[2]}&overlay={i % 3 != 0:d}")
+            if i % 3 == 2:
+                q += f"&heads={heads}"
+            t0 = time.perf_counter()
+            jpeg = get(q)
+            times.append((time.perf_counter() - t0) * 1e3)
+            if i:                                # the first one warms up
+                by_kind[kinds[i % 3]].append(times[-1])
+            img = Image.open(io.BytesIO(jpeg))
+            if jpeg[:2] != b"\xff\xd8" or img.size != (args.width,
+                                                        args.height):
+                fail(f"viewer request {i}: not a {args.width}x"
+                     f"{args.height} JPEG")
+        torch.cuda.synchronize()
+        launches = dict(CR.launches)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    for k in ("decode_cull", "composite_fwd"):
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched on the viewer path")
+
+    # One overlaid frame's image before JPEG against the plain compositors.
+    az, el, dist, ctr = views[1]
+    got = vs.render_image(az, el, dist, np.asarray(ctr), overlay=True)
+    if got.std() < 1.0 / 255:
+        fail("viewer frame is blank")
+    cam = vs._cam(az, el, dist, np.asarray(ctr))
+    plain = check_frame("viewer frame", lambda: frame_parts(
+        vs.state, cam, vs.width, vs.height, vs.config, vs._labels,
+        vs._nonempty, sh_degree=vs.sh_degree), got)
+    return dict(build_seconds=build_seconds, launches=launches,
+                requests=len(times), first_request_ms=times[0],
+                ms_per_request=sum(times[1:]) / (len(times) - 1),
+                ms_by_kind={k: sum(v) / len(v) for k, v in by_kind.items()},
+                reprobes=vs.reprobes, entry_budget=vs.config.entry_budget,
+                n_heads=n_heads, size=[args.width, args.height],
+                plain_check=plain)
+
+
 def check_probe() -> dict:
-    """Phase 12: the scan probe's kinds against the plain version, at the
+    """Phase 16: the scan probe's kinds against the plain version, at the
     cluster's edges, repeated and at 0 steps; timed at 256 and 64 steps
     beside the torch.cumsum loop (eager and as a CUDA graph); then
     apps/prof_scan with the launch counters read around it."""
@@ -1430,7 +1910,38 @@ def main() -> None:
     ep = eval_path(model_dir)
     say("eval_path", **ep)
 
-    # 12. the scan probe
+    # 12. metrics (SSIM / PSNR / LPIPS) on the trained model's test renders
+    mt = metrics_path(os.path.join(WORK, "train_model"))
+    say("metrics_path", **mt)
+    print("metrics: " + ", ".join(
+        f"{k} {v['seconds_per_image']:.3f} s/image after a first run of "
+        f"{v['first_run_seconds']:.2f} s (PNG reads {v['png_read_ms']:.1f} "
+        f"ms, SSIM + PSNR {v['ssim_psnr_ms']:.2f} ms, LPIPS forward "
+        f"{v['lpips_ms']:.2f} ms)" for k, v in mt["nets"].items())
+        + f" at {BENCH['width']}x{BENCH['height']} on {smi}", flush=True)
+
+    # 13-14. 360 videos: the field with the head overlay, then each head
+    fp = field_path(model_dir)
+    say("field_360_path", **fp)
+    hp = head_path(model_dir)
+    say("head_360_path", **hp)
+    for name, r in (("360 field", fp), ("360 head", hp)):
+        print(f"{name}: {r['frames']} frames at {r['size'][0]}x"
+              f"{r['size'][1]}, {r['fps']:.2f} FPS over the orbits and "
+              f"{r['fps_run']:.2f} over the whole run ({r['seconds']:.1f} s: "
+              f"probes {r['probe_seconds']:.1f}, lift {r['lift_seconds']:.1f},"
+              f" encode {r['encode_seconds']:.1f}) on the host clock, "
+              f"device busy {r['busy']['device_busy_share']:.1%}, "
+              f"{', '.join(r['videos'][:3])} on {smi}", flush=True)
+
+    # 15. the viewer
+    vp = viewer_path(scene_dir, model_dir)
+    say("viewer_path", **vp)
+    print(f"viewer: {vp['ms_per_request']:.1f} ms per request at "
+          f"{vp['size'][0]}x{vp['size'][1]}, {vp['reprobes']} re-probes on "
+          f"{smi}", flush=True)
+
+    # 16. the scan probe
     probe = check_probe()
     say("probe", **probe)
 
@@ -1457,7 +1968,11 @@ def main() -> None:
                          "serving": mp["launches"][name],
                          "training": tp["launches"][name],
                          "segmentation": sp["launches"][name],
-                         "evaluation": ep["launches"][name]},
+                         "evaluation": ep["launches"][name],
+                         "metrics": mt["launches"][name],
+                         "360_field": fp["launches"][name],
+                         "360_head": hp["launches"][name],
+                         "viewer": vp["launches"][name]},
                      "segmentation_shapes": [
                          {k: x.get(k) for k in keys} for x in shapes]})
     # The probe's row: the cumsum kind (torch.cumsum computes the same

@@ -84,6 +84,22 @@ def test_seg_and_probe_entry_points_refuse_without_card(tmp_path, app):
         mod.main(argv)
 
 
+@pytest.mark.parametrize("app", ["metrics_app", "render_360_app",
+                                 "viewer_app"])
+def test_metrics_360_and_viewer_refuse_without_card(tmp_path, app):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    import importlib
+
+    mod = importlib.import_module(f"wheat3dgs_tpu_torch.apps.{app}")
+    argv = {"metrics_app": ["-m", str(tmp_path)],
+            "render_360_app": ["-m", str(tmp_path), "--exp_name", "e",
+                               "--render_type", "field"],
+            "viewer_app": ["-s", str(tmp_path), "-m", str(tmp_path)]}[app]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(argv)
+
+
 @pytest.mark.parametrize("alone", [False, True])
 def test_chip_smoke_refuses_without_card(tmp_path, alone):
     if torch.cuda.is_available():

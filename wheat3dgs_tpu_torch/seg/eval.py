@@ -23,12 +23,16 @@ from . import flashsplat
 def eval_obj_labels(state: GaussianState, obj_labels, w2c, full_proj,
                     cam_center, tanfovx, tanfovy, *, width: int, height: int,
                     config: RasterConfig = RasterConfig(),
-                    with_areas: bool = False):
+                    with_areas: bool = False, nonempty=None):
     """obj_labels: (L+1, cap) bool membership (row 0 = background, not
     drawn). Returns the (H, W) int32 map of head ids; with_areas=True also
     returns the (L+1,) int32 AMODAL footprint per row (alpha > 0.5 pixels
     of the row rendered alone, before depth resolution), which the
-    synthetic-mask generator's visibility gate reads."""
+    synthetic-mask generator's visibility gate reads.
+
+    nonempty: the rows' `any()` as a host list, for callers that render
+    many views of the same labels; computed here when None (a host read,
+    which waits for the device)."""
     dev = state.device
     labels = torch.as_tensor(obj_labels, device=dev).to(torch.bool)
     l1 = labels.shape[0]
@@ -36,7 +40,8 @@ def eval_obj_labels(state: GaussianState, obj_labels, w2c, full_proj,
     min_depth = torch.ones((height, width), dtype=torch.float32, device=dev)
     areas = torch.zeros((l1,), dtype=torch.int32, device=dev)
     # Empty rows render nothing: skipped (their area is 0).
-    nonempty = labels.any(dim=1).tolist()
+    if nonempty is None:
+        nonempty = labels.any(dim=1).tolist()
     for obj in range(l1):
         if not nonempty[obj] or (obj == 0 and not with_areas):
             continue
