@@ -91,7 +91,20 @@ when run outside a checkout of the repo. Phases, each reported on a line:
    whitelist, each a JPEG of that size, ms per request, re-probes, one
    overlaid frame's image before JPEG against the plain compositors (as
    the 360 frame, in float);
-16. the scan probe: each kind of the kernel against its plain version on
+16. morphology: `morphology.run_pipeline` at the reference config
+   (wheatheadsmorphology/config.yaml's values) on the heads phase 10 wrote,
+   once on the card and once on the CPU from the same seeded np.random:
+   the traits xlsx, the boxes and the merged PLY of kept points byte-equal
+   (so each head's kept set, traits and box), a row per head, seconds a
+   head on each device split into cluster, SOR and traits;
+17. pipeline: `wheat3dgs_tpu_torch/scripts/run_wheat_3dgs.sh` on the bench
+   scene into a fresh model dir (DEVICE=cuda, ITERS=PIPELINE_ITERS), each
+   `python` call through a runner that logs its seconds and the kernel
+   launches in that process (and whether `python` is on PATH): every step
+   exits 0, the saved iteration, results.json, the head PLYs, the eval
+   PNGs and all_counts.pt, both 360 mp4 kinds, a traits xlsx with a row per
+   head PLY; then `scripts/eval.sh` on the same model;
+18. the scan probe: each kind of the kernel against its plain version on
    the probe's input and a seeded normal block, and at the cluster's edge
    shapes (8 rows, fewer than its CTAs; 1000 rows, not a multiple of them;
    the probe's 1024 is the most it holds), two launches bit-identical,
@@ -99,7 +112,7 @@ when run outside a checkout of the repo. Phases, each reported on a line:
    refused; timed at 256 and 64 steps (the slope is the time a step
    costs) beside a torch.cumsum loop, eager and replayed from a CUDA graph;
    then `apps/prof_scan.main` with the counters reset;
-17. a `kernels` JSON line, then the device line last.
+19. a `kernels` JSON line, then the device line last.
 Work files go to `_smoke_work/` in the checkout and are removed on success.
 """
 
@@ -183,6 +196,20 @@ LPIPS_REL = 1e-4
 # eval_obj_labels' alpha 0.5 threshold may flip it).
 OVERLAY_OFF_MAX = 1e-3
 BUSY_FRAMES = 5
+# Phase 16: the morphology at wheatheadsmorphology/config.yaml's values
+# (run_wheat_3dgs.sh's step 5).
+MORPHOLOGY = {"file_format": "ply", "subsampling_threshold": 5000,
+              "clusterer_definition": {"type": "hdbscan", "min_samples": 15,
+                                       "min_cluster_size": 250,
+                                       "epsilon_hdbscan": 0.015},
+              "sor_parameters": {"k": 200, "std_ratio": 3},
+              "splines_smoothing_value": 1, "distance_percentile": 99,
+              "get_bboxes": True, "get_processed_pcd": True}
+# Phase 17: the pipeline script's training iterations, cut from 15,000 (the
+# other seven steps cost about the same at any count), and a limit on each
+# script's run.
+PIPELINE_ITERS = 300
+SCRIPT_TIMEOUT = 600
 # cuda_time_ms, bound, fwd_bound and smi_line are bound in main(), from the
 # port's utils/cuda_timing, once the port is found next to this script.
 
@@ -1693,6 +1720,223 @@ def viewer_path(scene_dir: str, model_dir: str) -> dict:
                 plain_check=plain)
 
 
+def morphology_path(model_dir: str) -> dict:
+    """Phase 16: morphology.run_pipeline at the reference config on the
+    heads phase 10 wrote, once on the card and once on the CPU from the
+    same seeded np.random: every file equal (so each head's kept points,
+    traits and boxes), seconds a head split into cluster, SOR and traits
+    (each stage returns host arrays, so its device work is inside)."""
+    import zipfile
+
+    import numpy as np
+    import torch
+
+    from wheat3dgs_tpu_torch.morphology import pipeline
+    from wheat3dgs_tpu_torch.ops import cuda_raster as CR
+
+    heads = os.path.join(model_dir, "wheat-head", "smoke", "ply")
+    n_files = len([f for f in os.listdir(heads) if f.endswith(".ply")])
+    stages = {"cluster_s": "main_cluster_extraction",
+              "sor_s": "statistical_outlier_removal",
+              "traits_s": "compute_traits"}
+    saved = {k: getattr(pipeline, fn) for k, fn in stages.items()}
+
+    def timed(key, times):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            out = saved[key](*a, **k)
+            times[key].append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    runs = {}
+    for tag, dev in (("card", DEVICE), ("cpu", "cpu")):
+        out = os.path.join(WORK, f"morphology_{tag}")
+        os.makedirs(out)
+        times = {k: [] for k in stages}
+        np.random.seed(0)
+        try:
+            for key, fn in stages.items():
+                setattr(pipeline, fn, timed(key, times))
+            CR.reset_launches()
+            t0 = time.perf_counter()
+            xlsx = pipeline.run_pipeline(
+                dict(MORPHOLOGY, data_folder=heads, output_folder=out),
+                device=dev)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            for key, fn in stages.items():
+                setattr(pipeline, fn, saved[key])
+        # The workbook's sheet (its zip stamps each part with the time),
+        # the boxes and the merged PLY of kept points.
+        files = {"_traits.xlsx": zipfile.ZipFile(xlsx).read(
+            "xl/worksheets/sheet1.xml")}
+        for suffix in ("_bboxes.json", "_pcd.ply"):
+            path = str(xlsx).replace("_traits.xlsx", suffix)
+            files[suffix] = open(path, "rb").read()
+        runs[tag] = dict(seconds=seconds, times=times, files=files,
+                         rows=_xlsx_rows(str(xlsx)),
+                         launches=dict(CR.launches))
+    if not runs["cpu"]["rows"] or len(runs["cpu"]["rows"]) != n_files:
+        fail(f"morphology: {len(runs['cpu']['rows'])} rows for {n_files} "
+             "head PLYs")
+    for suffix in runs["cpu"]["files"]:
+        if runs["card"]["files"][suffix] != runs["cpu"]["files"][suffix]:
+            diff = [(a, b) for a, b in zip(runs["card"]["rows"],
+                                           runs["cpu"]["rows"]) if a != b]
+            fail(f"morphology: {suffix} differs between {DEVICE} and cpu; "
+                 f"rows apart: {diff[:3]}")
+
+    def per_head(tag):
+        t = runs[tag]["times"]
+        return {k: float(np.sum(v) / n_files) for k, v in t.items()} | {
+            "seconds_per_head": runs[tag]["seconds"] / n_files,
+            "first_head_cluster_s": t["cluster_s"][0],
+            "sor_runs": len(t["sor_s"])}
+
+    points = [int(r[3]) for r in runs["cpu"]["rows"]]
+    return dict(heads=n_files, rows=len(points), files_equal=True,
+                launches=runs["card"]["launches"], kept_points=points,
+                seconds={t: runs[t]["seconds"] for t in runs},
+                per_head={t: per_head(t) for t in runs},
+                traits_first_row=runs["cpu"]["rows"][0])
+
+
+def _xlsx_rows(path: str) -> list:
+    """The data rows of a traits workbook, as lists of cell texts."""
+    import re
+    import zipfile
+
+    xml = zipfile.ZipFile(path).read("xl/worksheets/sheet1.xml").decode()
+    rows = re.findall(r"<row [^>]*>(.*?)</row>", xml)[1:]
+    return [re.findall(r"<(?:v|t)>(.*?)</(?:v|t)>", r) for r in rows]
+
+
+# The step runner the pipeline scripts' `python` calls go through: it runs
+# the module (or stdin's program) as python would, and appends the step's
+# seconds and the port's kernel launches in that process to a log.
+STEP_RUNNER = """import atexit, json, os, runpy, sys, time
+t0 = time.perf_counter()
+argv = sys.argv[1:]
+
+def record():
+    mod = sys.modules.get("wheat3dgs_tpu_torch.ops.cuda_build")
+    rec = {"argv": argv, "seconds": time.perf_counter() - t0,
+           "launches": dict(mod.launches) if mod else {}}
+    with open(os.environ["SMOKE_STEP_LOG"], "a") as f:
+        f.write(json.dumps(rec) + "\\n")
+
+atexit.register(record)
+if argv[:1] == ["-m"]:
+    sys.argv = argv[1:]
+    runpy.run_module(argv[1], run_name="__main__", alter_sys=True)
+elif argv == ["-"]:
+    sys.argv = ["-"]
+    exec(compile(sys.stdin.read(), "<stdin>", "exec"),
+         {"__name__": "__main__"})
+else:
+    sys.exit(f"unexpected python call: {argv}")
+"""
+
+
+def run_script(script: str, args: list, env: dict, log_name: str) -> dict:
+    """Run one of the port's pipeline scripts under bash with `python` on
+    PATH going through STEP_RUNNER; its steps (argv, seconds, launches),
+    exit code and seconds. Its output goes to WORK/<log_name>."""
+    import subprocess
+
+    bindir = os.path.join(WORK, "bin")
+    if not os.path.isdir(bindir):
+        os.makedirs(bindir)
+        with open(os.path.join(bindir, "step_runner.py"), "w") as f:
+            f.write(STEP_RUNNER)
+        shim = os.path.join(bindir, "python")
+        with open(shim, "w") as f:
+            f.write(f'#!/bin/sh\nexec "{sys.executable}" '
+                    f'"{os.path.join(bindir, "step_runner.py")}" "$@"\n')
+        os.chmod(shim, 0o755)
+    step_log = os.path.join(WORK, log_name + ".steps")
+    if os.path.exists(step_log):
+        os.remove(step_log)
+    full = dict(os.environ, PATH=f"{bindir}:{os.environ.get('PATH', '')}",
+                SMOKE_STEP_LOG=step_log, **env)
+    out_path = os.path.join(WORK, log_name)
+    t0 = time.perf_counter()
+    with open(out_path, "w") as out:
+        proc = subprocess.run(
+            ["bash", os.path.join(ROOT, "wheat3dgs_tpu_torch", "scripts",
+                                  script), *args],
+            cwd=ROOT, env=full, stdout=out, stderr=subprocess.STDOUT,
+            timeout=SCRIPT_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    steps = []
+    if os.path.exists(step_log):
+        steps = [json.loads(ln) for ln in open(step_log)]
+    if proc.returncode != 0:
+        tail = open(out_path).read()[-3000:]
+        fail(f"{script} exited {proc.returncode} after {len(steps)} steps "
+             f"({[st['argv'][:2] for st in steps]}):\n{tail}")
+    launches = {k: sum(st["launches"].get(k, 0) for st in steps)
+                for k in ALL_KERNELS + ("scan_probe",)}
+    return dict(seconds=seconds, launches=launches,
+                steps=[{"step": " ".join(st["argv"][:2]),
+                        "seconds": st["seconds"],
+                        "launches": st["launches"]} for st in steps])
+
+
+def pipeline_path(scene_dir: str) -> dict:
+    """Phase 17: wheat3dgs_tpu_torch/scripts/run_wheat_3dgs.sh on the bench
+    scene into a fresh model dir (DEVICE=cuda, ITERS=PIPELINE_ITERS), every
+    step through the port's apps, then scripts/eval.sh on that model; the
+    output tree and each step's seconds and launches."""
+    python = {"python": shutil.which("python"),
+              "python3": shutil.which("python3")}
+    model = os.path.join(WORK, "pipeline_model")
+    env = {"DEVICE": DEVICE, "ITERS": str(PIPELINE_ITERS)}
+    run = run_script("run_wheat_3dgs.sh", [scene_dir, model, "smoke", "0.6"],
+                     env, "pipeline.log")
+    if len(run["steps"]) != 8:
+        fail(f"run_wheat_3dgs.sh ran {len(run['steps'])} python steps, "
+             "expected 8")
+    for k in ALL_KERNELS:
+        if run["launches"][k] <= 0:
+            fail(f"kernel {k} was not launched on the pipeline")
+    base = os.path.join(model, "wheat-head", "smoke")
+    need = [os.path.join(model, "point_cloud", f"iteration_{PIPELINE_ITERS}",
+                         "point_cloud.ply"),
+            os.path.join(model, "results.json"),
+            os.path.join(base, "all_counts.pt"),
+            os.path.join(base, "wheat_field_360.mp4")]
+    need += [os.path.join(model, "test", sub, f"plot_000_{c}.png")
+             for sub in ("segmentation", "overlay") for c in (11, 12)]
+    missing = [p for p in need if not os.path.exists(p)]
+
+    def ls(sub):
+        d = os.path.join(base, sub)
+        return sorted(os.listdir(d)) if os.path.isdir(d) else []
+
+    plys = [f for f in ls("ply") if f.startswith("wh_")
+            and f.endswith(".ply")]
+    videos = ls("wheat_head_360")
+    xlsx = [f for f in ls("morphology") if f.endswith("_traits.xlsx")]
+    rows = (_xlsx_rows(os.path.join(base, "morphology", xlsx[0]))
+            if len(xlsx) == 1 else [])
+    if missing or not plys or not videos or len(rows) != len(plys):
+        fail(f"pipeline tree: missing {missing}, {len(plys)} head PLYs, "
+             f"{len(videos)} head videos, {len(xlsx)} traits xlsx with "
+             f"{len(rows)} rows")
+    results = json.load(open(os.path.join(model, "results.json")))
+    ev = run_script("eval.sh", [scene_dir, model, "smoke"], env,
+                    "eval_script.log")
+    if len(ev["steps"]) != 3:
+        fail(f"eval.sh ran {len(ev['steps'])} python steps, expected 3")
+    return dict(python_on_path=python, iterations=PIPELINE_ITERS,
+                head_plys=len(plys), head_videos=len(videos),
+                traits_rows=len(rows), results=results, **run,
+                eval_script=ev)
+
+
 def check_probe() -> dict:
     """Phase 16: the scan probe's kinds against the plain version, at the
     cluster's edges, repeated and at 0 steps; timed at 256 and 64 steps
@@ -1941,7 +2185,28 @@ def main() -> None:
           f"{vp['size'][0]}x{vp['size'][1]}, {vp['reprobes']} re-probes on "
           f"{smi}", flush=True)
 
-    # 16. the scan probe
+    # 16. morphology on the segmented heads, card against CPU
+    mo = morphology_path(model_dir)
+    say("morphology_path", **mo)
+    print("morphology: " + ", ".join(
+        f"{t} {r['seconds_per_head']:.3f} s a head (cluster "
+        f"{r['cluster_s']:.3f}, SOR {r['sor_s']:.3f}, traits "
+        f"{r['traits_s']:.4f})" for t, r in mo["per_head"].items())
+        + f", {mo['heads']} heads of {min(mo['kept_points'])}-"
+        f"{max(mo['kept_points'])} kept points, files equal on both "
+        f"devices; {smi}", flush=True)
+
+    # 17. the pipeline script, then eval.sh, on a fresh model
+    pp = pipeline_path(scene_dir)
+    say("pipeline_path", **pp)
+    print(f"pipeline: {pp['seconds']:.1f} s (" + ", ".join(
+        f"{st['step'].split('.')[-1]} {st['seconds']:.1f}"
+        for st in pp["steps"]) + f"), {pp['head_plys']} heads, "
+        f"{pp['traits_rows']} traits rows; eval.sh "
+        f"{pp['eval_script']['seconds']:.1f} s; python on PATH: "
+        f"{pp['python_on_path']}; {smi}", flush=True)
+
+    # 18. the scan probe
     probe = check_probe()
     say("probe", **probe)
 
@@ -1972,7 +2237,9 @@ def main() -> None:
                          "metrics": mt["launches"][name],
                          "360_field": fp["launches"][name],
                          "360_head": hp["launches"][name],
-                         "viewer": vp["launches"][name]},
+                         "viewer": vp["launches"][name],
+                         "pipeline_script": pp["launches"][name],
+                         "eval_script": pp["eval_script"]["launches"][name]},
                      "segmentation_shapes": [
                          {k: x.get(k) for k in keys} for x in shapes]})
     # The probe's row: the cumsum kind (torch.cumsum computes the same

@@ -2,7 +2,8 @@
 
 - An AST scan: no module of wheat3dgs_tpu_torch/, and not chip_smoke.py,
   imports jax or the JAX package (a sys.modules check cannot show this:
-  the interpreter here may preload jax).
+  the interpreter here may preload jax), nor sklearn, pandas, pydantic or
+  yaml, which the port does not depend on.
 - Entry points asked for the default device raise when no card is present.
 - chip_smoke.py exits non-zero and prints no result without a card, and
   when it stands alone outside the repo.
@@ -54,6 +55,70 @@ def test_port_imports_no_jax():
             bad += [f"{os.path.relpath(path, ROOT)}:{node.lineno} {n}"
                     for n in names if _forbidden(n)]
     assert not bad, bad
+
+
+def _imports(path: str):
+    """(line, module) of every import in the file at `path`."""
+    for node in ast.walk(ast.parse(open(path).read(), filename=path)):
+        if isinstance(node, ast.Import):
+            yield from ((node.lineno, a.name) for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "id", "") == "__import__"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield node.lineno, str(node.args[0].value)
+
+
+def test_port_imports_no_sklearn_pandas_pydantic_yaml():
+    bad = [f"{os.path.relpath(path, ROOT)}:{line} {name}"
+           for path in _port_files() for line, name in _imports(path)
+           if name.split(".")[0] in ("sklearn", "pandas", "pydantic",
+                                     "yaml")]
+    assert not bad, bad
+
+
+def test_morphology_and_minimal_trainer_need_card_or_cpu(tmp_path):
+    """Both refuse to run without a card unless given --device cpu."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    import numpy as np
+
+    from wheat3dgs_tpu_torch.apps import morphology_app, train_minimal
+    from wheat3dgs_tpu_torch.io.ply import write_ply
+    from wheat3dgs_tpu_torch.io.synthetic import make_synthetic_colmap_scene
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)     # tiny tensors: threads only add waits
+    try:
+        (tmp_path / "heads").mkdir()
+        pts = np.random.default_rng(0).normal(size=(300, 3)).astype("<f4")
+        write_ply(str(tmp_path / "heads" / "1.ply"),
+                  {"x": pts[:, 0], "y": pts[:, 1], "z": pts[:, 2]})
+        (tmp_path / "m.yaml").write_text(
+            'data_folder: "heads/"\noutput_folder: "out/"\n'
+            'file_format: "ply"\n'
+            "subsampling_threshold: 5000\nclusterer_definition:\n"
+            '  type: "dbscan"\n  epsilon: 1.0\n  min_samples: 5\n'
+            "sor_parameters:\n  k: 20\n  std_ratio: 3\n"
+            "splines_smoothing_value: 1\ndistance_percentile: 99\n"
+            "get_bboxes: true\nget_processed_pcd: false\n")
+        scene = str(tmp_path / "scene")
+        make_synthetic_colmap_scene(scene, width=32, height=24, n_heads=1,
+                                    pts_per_head=20, ground_pts=60,
+                                    device="cpu")
+        runs = {morphology_app: ["-c", str(tmp_path / "m.yaml")],
+                train_minimal: ["-s", scene, "-m", str(tmp_path / "model"),
+                                "--iterations", "2", "--quiet"]}
+        for mod, argv in runs.items():
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                mod.main(argv)
+            mod.main(argv + ["--device", "cpu"])
+    finally:
+        torch.set_num_threads(threads)
+    assert len(os.listdir(tmp_path / "out")) == 2     # xlsx + boxes
+    assert os.path.exists(tmp_path / "model" / "point_cloud" /
+                          "iteration_2" / "point_cloud.ply")
 
 
 def test_render_sets_refuses_without_card(tmp_path):

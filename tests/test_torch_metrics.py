@@ -91,3 +91,27 @@ def test_metrics_match_jax(model, mode, monkeypatch, tmp_path):
                 ["00000.png", "00001.png"]
             for name, v in per.items():
                 assert _close(t_view[method][k][name], v), (method, k, name)
+
+
+def test_metrics_skip_eval_outputs(model, monkeypatch, tmp_path):
+    """eval_wheatgs_app writes test/{segmentation,overlay}/ PNGs beside
+    the method dirs. The port's metrics app skips dirs without renders/
+    and scores the methods as before; JAX's stops on them, so the root
+    eval.sh fails on a model that has been through run_wheat_3dgs.sh."""
+    import shutil
+
+    monkeypatch.delenv("WHEAT3DGS_LPIPS_WEIGHTS", raising=False)
+    j_full, _ = _run(JM.main, model, [])
+    tree = str(tmp_path / "model")
+    shutil.copytree(model, tree)
+    for sub in ("segmentation", "overlay"):
+        os.makedirs(os.path.join(tree, "test", sub))
+        Image.fromarray(np.zeros((36, 40, 3), np.uint8)).save(
+            os.path.join(tree, "test", sub, "plot_000_11.png"))
+    t_full, _ = _run(TM.main, tree, ["--device", "cpu"])
+    assert sorted(t_full) == sorted(j_full)
+    for method, ref in j_full.items():
+        for k in ("SSIM", "PSNR"):
+            assert _close(t_full[method][k], ref[k]), (method, k)
+    with pytest.raises(FileNotFoundError):
+        JM.main(["-m", tree])

@@ -57,9 +57,16 @@ def evaluate(model_paths, lpips_weights: str | None = None, device="cuda"):
         full, per_view = {}, {}
         test_dir = os.path.join(model_path, "test")
         for method in sorted(os.listdir(test_dir)):
-            print("Method:", method)
             rdir = os.path.join(test_dir, method, "renders")
             gdir = os.path.join(test_dir, method, "gt")
+            if not os.path.isdir(rdir):
+                # eval_wheatgs_app's segmentation/ and overlay/ sit beside
+                # the method dirs and hold no renders (JAX's metrics app
+                # stops on them, so the root eval.sh fails on a model that
+                # has been through run_wheat_3dgs.sh).
+                print(f"Skipping {method}: no renders/")
+                continue
+            print("Method:", method)
             names = sorted(os.listdir(rdir))
             ssims, psnrs, lpipss = [], [], []
             for nm in names:

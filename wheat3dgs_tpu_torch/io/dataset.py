@@ -1,12 +1,12 @@
 """Scene loading: COLMAP -> SceneData (reference: scene/dataset_readers.py,
 scene/__init__.py).
 
-Counterpart of wheat3dgs_tpu/io/dataset.py's COLMAP path: parses the sparse
+Counterpart of wheat3dgs_tpu/io/dataset.py: parses the COLMAP sparse
 model, loads/resizes images with PIL (PILtoTorch semantics), applies the
 wheat train/test split (camera index > 10 => test), computes the NeRF++
-normalization radius, and stacks the cameras as tensors on `device`.
-Images stay host numpy, as in the JAX package. The Blender reader waits
-for a later slice of the port.
+normalization radius, and stacks the cameras as tensors on `device`; the
+Blender (NeRF-synthetic transforms_*.json) reader does the same for such
+scenes. Images stay host numpy, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -199,3 +199,91 @@ def search_max_iteration(point_cloud_dir: str) -> int:
     (reference: utils/system_utils.py:26-28)."""
     saved = [int(d.split("_")[-1]) for d in os.listdir(point_cloud_dir)]
     return max(saved)
+
+
+def read_blender_scene(source_path: str, white_background: bool = False,
+                       eval_split: bool = True, resolution: int = 1,
+                       extension: str = ".png",
+                       load_images: bool = True,
+                       num_random_points: int = 100_000,
+                       device="cuda") -> SceneData:
+    """NeRF-synthetic (Blender transforms_{train,test}.json) reader
+    (reference: wheat3dgsviewer/scene/dataset_readers.py:228-310; JAX
+    io/dataset.py:193-276).
+
+    RGBA images are alpha-composited onto the chosen background; with no
+    SfM points, a random cloud from np.random.default_rng(0) seeds the
+    Gaussians (reference :290-299), written once to points3d.ply.
+    """
+    from PIL import Image
+
+    def read_split(transforms_file):
+        with open(os.path.join(source_path, transforms_file)) as f:
+            contents = json.load(f)
+        fovx = contents["camera_angle_x"]
+        metas, images = [], []
+        size = None
+        for idx, frame in enumerate(contents["frames"]):
+            img_rel = frame["file_path"] + extension
+            img_path = os.path.join(source_path, img_rel)
+            c2w = np.array(frame["transform_matrix"], np.float64)
+            c2w[:3, 1:3] *= -1          # OpenGL/Blender -> COLMAP axes
+            w2c = np.linalg.inv(c2w)
+            R_c2w = w2c[:3, :3].T
+            T = w2c[:3, 3]
+            with Image.open(img_path) as im:
+                size = im.size
+                if load_images:
+                    rgba = np.asarray(im.convert("RGBA"), np.float32) / 255.0
+            fovy = graphics.focal2fov(
+                graphics.fov2focal(fovx, size[0]), size[1])
+            metas.append(CameraMeta(
+                uid=idx, colmap_id=idx, image_name=os.path.splitext(
+                    os.path.basename(img_rel))[0],
+                image_path=img_path, bbox_path=None, mask_paths=None,
+                R=R_c2w, T=T, fovx=fovx, fovy=fovy))
+            if load_images:
+                bg = np.ones(3) if white_background else np.zeros(3)
+                rgb = rgba[..., :3] * rgba[..., 3:] + bg * (1 - rgba[..., 3:])
+                images.append(rgb.transpose(2, 0, 1).astype(np.float32))
+        return metas, images, size
+
+    train_metas, train_imgs, size = read_split("transforms_train.json")
+    test_metas, test_imgs, _ = read_split("transforms_test.json")
+    if not eval_split:
+        train_metas += test_metas
+        train_imgs += test_imgs
+        test_metas, test_imgs = [], []
+
+    (w, h), total_scale = resolve_resolution(size[0], size[1], resolution, 1.0)
+
+    def build(metas, imgs):
+        if not metas:
+            return CameraGroup(
+                cameras=make_camera_batch([], [], [], [], 0, 0,
+                                          device=device),
+                images=np.zeros((0, 3, 0, 0), np.float32), metas=[])
+        for m in metas:
+            m.resolution_scale = total_scale
+        images = (np.stack(imgs) if imgs
+                  else np.zeros((len(metas), 3, h, w), np.float32))
+        cams = make_camera_batch([m.R for m in metas], [m.T for m in metas],
+                                 [m.fovx for m in metas],
+                                 [m.fovy for m in metas], w, h, device=device)
+        return CameraGroup(cameras=cams, images=images, metas=metas)
+
+    norm = nerfpp_norm([graphics.world_to_view(m.R, m.T)
+                        for m in train_metas])
+    ply_path = os.path.join(source_path, "points3d.ply")
+    if not os.path.exists(ply_path):
+        # No SfM points for synthetic scenes: random init in scene bounds.
+        rng = np.random.default_rng(0)
+        xyz = rng.random((num_random_points, 3)) * 2.6 - 1.3
+        rgb = rng.random((num_random_points, 3))
+        write_points_ply(ply_path, xyz, (rgb * 255).astype(np.uint8))
+    pcd = read_points_ply(ply_path)
+
+    return SceneData(point_cloud=pcd, train=build(train_metas, train_imgs),
+                     test=build(test_metas, test_imgs),
+                     cameras_extent=float(norm["radius"]),
+                     translate=norm["translate"], ply_path=ply_path)

@@ -5,8 +5,9 @@ Counterpart of wheat3dgs_tpu/scene.py (reference Scene, scene/__init__.py:
 (`point_cloud/iteration_<it>/point_cloud.ply`) or creates the Gaussians from
 the scene's point cloud and writes input.ply / cameras.json into the model
 dir, and exposes the train/test cameras and images (load_images=False
-reads no image file, for callers that need only the cameras). The Blender
-reader waits for a later slice of the port.
+reads no image file, for callers that need only the cameras). A source
+with `sparse/` is a COLMAP scene, one with `transforms_train.json` a
+Blender (NeRF-synthetic) scene.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ import torch
 
 from . import resolve_device
 from .config import ModelParams
-from .io.dataset import (SceneData, export_scene_artifacts, read_colmap_scene,
+from .io.dataset import (SceneData, export_scene_artifacts,
+                         read_blender_scene, read_colmap_scene,
                          search_max_iteration)
 from .models import gaussians as G
 from .models.serialization import load_ply, save_ply
@@ -41,9 +43,10 @@ class Scene:
                 load_images=load_images, device=self.device)
         elif os.path.exists(os.path.join(model.source_path,
                                          "transforms_train.json")):
-            raise NotImplementedError(
-                "Blender scenes: the reader is not ported yet (a later "
-                "slice of the port)")
+            self.data = read_blender_scene(
+                model.source_path, white_background=model.white_background,
+                eval_split=model.eval, resolution=model.resolution,
+                load_images=load_images, device=self.device)
         else:
             raise ValueError(
                 f"could not recognize scene type in {model.source_path}")
