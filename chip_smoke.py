@@ -112,7 +112,24 @@ when run outside a checkout of the repo. Phases, each reported on a line:
    refused; timed at 256 and 64 steps (the slope is the time a step
    costs) beside a torch.cumsum loop, eager and replayed from a CUDA graph;
    then `apps/prof_scan.main` with the counters reset;
-19. a `kernels` JSON line, then the device line last.
+19. multi-plot training: `apps/train_multi.main` on two bench plots
+   (phase 3's scene and the generator's plot 462 from seed 1, 100,000
+   points3D each) with MULTI_VIEWS views a step for MULTI_ITERS
+   iterations on bench.py's schedule, the launch counters reset just
+   before and read just after: finite per-plot losses and a training-PSNR
+   rise for each plot, a densify event, each training kernel counted
+   P x B times a step, the graph's captures (no more than densify events
+   + capacity doublings + SH changes + 1), every step's demand at or under
+   its budget (a device maximum read once), both PLYs loaded; the four
+   training kernels against their plain versions at the app's shapes
+   (each trained plot at the automatic budget, at the run's capacity and
+   at its doubling: the loss's gradients within GRAD_REL, the colour
+   image as composite_train_fwd's stop); then one
+   multi-plot step from copies of the trained states against each plot
+   stepped alone and against its own replay (bit-identical, or within the
+   spread of two eager runs), the steady rates at SH 3 for P = 1, 2 and
+   B = 1, 2 in turns on the host clock, and the device's busy share;
+20. a `kernels` JSON line, then the device line last.
 Work files go to `_smoke_work/` in the checkout and are removed on success.
 """
 
@@ -210,6 +227,21 @@ MORPHOLOGY = {"file_format": "ply", "subsampling_threshold": 5000,
 # script's run.
 PIPELINE_ITERS = 300
 SCRIPT_TIMEOUT = 600
+# Phase 19: two bench plots trained together, B views a step, on bench.py's
+# schedule (densify from 20 every 40, no opacity reset); the second plot
+# is the generator's plot 462 from seed 1 at the bench sizes, without
+# masks. Rates: steps per timed turn, rounds of turns (each
+# configuration twice a round, in mirrored order), steps in the
+# busy-share window.
+MULTI_ITERS = 200
+MULTI_VIEWS = 2
+MULTI_PLOT = dict(plot_id=462, seed=1, with_masks=False)
+MULTI_RATE_STEPS = 20
+MULTI_RATE_ROUNDS = 3
+MULTI_BUSY_STEPS = 5
+# Each plot's training PSNR after MULTI_ITERS iterations must beat its
+# first step's by this many dB.
+MULTI_PSNR_RISE_DB = 1.0
 # cuda_time_ms, bound, fwd_bound and smi_line are bound in main(), from the
 # port's utils/cuda_timing, once the port is found next to this script.
 
@@ -1937,6 +1969,344 @@ def pipeline_path(scene_dir: str) -> dict:
                 eval_script=ev)
 
 
+def check_app_kernels(states, cams, gts, sh_degree: int, opt) -> list:
+    """Phase 19: the four training kernels against their plain versions at
+    the shapes the multi-plot app gives them: each trained plot on its
+    first train view at RasterConfig() (the app's automatic budget of 16
+    entries a slot), at the run's capacity and at its doubling (the app's
+    pad_cap). The step's loss is differentiated with respect to every
+    parameter and the viewspace hook (the densification statistics' input)
+    on the kernel path and on the all-plain path; each gradient is held
+    within GRAD_REL of its max |value|. The colour image is held within
+    COMPOSITE_ATOL / COMPOSITE_RTOL except on pixels where an entry's alpha
+    lands within rounding of ALPHA_MIN (the kernel's conic power is
+    contracted to FMAs): one path keeps it and the other drops it, which
+    moves the pixel by up to ALPHA_MIN x its transmittance x its value, and
+    its stop. Those pixels are counted and held under STOP_MISMATCH_MAX of
+    the pixels, as composite_train_fwd's stops are."""
+    import dataclasses
+
+    import torch
+
+    from wheat3dgs_tpu_torch.apps.train_multi import _pad_cap
+    from wheat3dgs_tpu_torch.models import gaussians as G
+    from wheat3dgs_tpu_torch.ops.cuda_raster import default_budget
+    from wheat3dgs_tpu_torch.ops.losses import photometric_loss
+    from wheat3dgs_tpu_torch.render.pipeline import RasterConfig, render
+
+    h, w = gts.shape[-2:]
+    bg = torch.zeros(3, device=DEVICE)
+
+    def step_grads(st, cam, gt):
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in st.params.as_dict().items()}
+        ndc = torch.zeros((st.capacity, 2), device=DEVICE,
+                          requires_grad=True)
+        view = dataclasses.replace(st, params=G.GaussianParams(**leaves))
+        out = render(view, *cam, w, h, sh_degree, bg=bg, ndc_offset=ndc,
+                     config=RasterConfig())
+        loss = photometric_loss(out.color, gt, opt.lambda_dssim)
+        grads = torch.autograd.grad(loss, list(leaves.values()) + [ndc])
+        return (out.color.detach(), float(loss.detach()),
+                int(out.entries_total),
+                dict(zip(list(leaves) + ["viewspace"], grads)))
+
+    results = []
+    for doubled in (False, True):
+        stacked = _pad_cap(states) if doubled else states
+        for p in range(gts.shape[0]):
+            st = G.map_tensors(lambda x: x[p], stacked)
+            cam = tuple(c[p, 0] for c in cams)
+            color, loss, entries, got = step_grads(st, cam, gts[p, 0])
+            with plain_kernels():
+                ref_color, ref_loss, _, ref = step_grads(st, cam, gts[p, 0])
+            where = (f"multi-plot kernels, plot {p} at capacity "
+                     f"{st.capacity}")
+            err = (color - ref_color).abs()
+            off = int((err > COMPOSITE_ATOL + COMPOSITE_RTOL
+                       * ref_color.abs()).any(0).sum())
+            if off > STOP_MISMATCH_MAX * w * h:
+                fail(f"{where}: colour image differs from the plain path on "
+                     f"{off} pixels, by up to {float(err.max())}")
+            grad_rel = {}
+            for k, a in got.items():
+                top = float(ref[k].abs().max())
+                grad_rel[k] = (float((a - ref[k]).abs().max()) / top
+                               if top > 0 else 0.0)
+                if not bool(torch.isfinite(a).all()) or \
+                        grad_rel[k] > GRAD_REL:
+                    fail(f"{where}: gradient of {k} {grad_rel[k]} of its "
+                         f"max (bound {GRAD_REL})")
+            results.append(dict(
+                plot=p, capacity=st.capacity,
+                entry_budget=default_budget(st.capacity), entries=entries,
+                loss=loss, plain_loss=ref_loss,
+                colour_max_abs_err=float(err.max()),
+                colour_pixels_off=off, grad_rel_of_max=grad_rel))
+    return results
+
+
+def multi_plot_path(scene_dir: str) -> dict:
+    """Phase 19: apps/train_multi on two bench plots (phase 3's scene and
+    the generator's plot 462) with MULTI_VIEWS views a step, the launch
+    counters reset just before and read just after; then one multi-plot
+    step against single-plot steps and a replayed step against an eager
+    one, and the steady rates at SH 3 for P = 1, 2 and B = 1, 2."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from wheat3dgs_tpu_torch import training
+    from wheat3dgs_tpu_torch.apps import train_multi
+    from wheat3dgs_tpu_torch.io.synthetic import make_synthetic_colmap_scene
+    from wheat3dgs_tpu_torch.models import gaussians as G
+    from wheat3dgs_tpu_torch.models.serialization import load_ply
+    from wheat3dgs_tpu_torch.ops import cuda_raster as CR
+    from wheat3dgs_tpu_torch.ops.cuda_raster import default_budget
+
+    plot2 = os.path.join(WORK, "plot_462")
+    t0 = time.perf_counter()
+    make_synthetic_colmap_scene(plot2, device=DEVICE, **MULTI_PLOT, **{
+        k: BENCH[k] for k in ("width", "height", "n_cams", "n_heads",
+                              "pts_per_head", "ground_pts")})
+    gen_seconds = time.perf_counter() - t0
+
+    # Every step object the app builds, and per call (no host read): the
+    # capacity, the worst per-plot demand over its budget (entry_budget 0:
+    # 16 per slot), the losses' finiteness, the first step's PSNR.
+    built, caps = [], []
+    dev = torch.device(DEVICE)
+    over = torch.full((), -2 ** 40, dtype=torch.int64, device=dev)
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    first = {}
+
+    class Recording(training.MultiPlotStep):
+        def __call__(self, states, *args):
+            states, m = super().__call__(states, *args)
+            cap = states.alive.shape[1]
+            caps.append(cap)
+            torch.maximum(over, (m["entries_total"].max().to(torch.int64)
+                                 - default_budget(cap)), out=over)
+            finite.logical_and_(torch.isfinite(m["loss"]).all())
+            first.setdefault("psnr", m["psnr"])
+            return states, m
+
+    def factory(*a, **k):
+        built.append(Recording(*a, **k))
+        return built[-1]
+
+    model_base = os.path.join(WORK, "multi_models")
+    n_iter, interval, densify_from = MULTI_ITERS, 40, 20
+    densify_until = n_iter - 40
+    argv = ["--source_paths", scene_dir, plot2, "--model_base", model_base,
+            "--device", DEVICE, "--iterations", str(n_iter),
+            "--densify_from_iter", str(densify_from),
+            "--densification_interval", str(interval),
+            "--densify_until_iter", str(densify_until),
+            "--opacity_reset_interval", "100000",
+            "--views_per_step", str(MULTI_VIEWS), "--quiet"]
+    real = train_multi.multi_plot_step
+    train_multi.multi_plot_step = factory
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        CR.reset_launches()
+        t0 = time.perf_counter()
+        scenes, states = train_multi.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(CR.launches)
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        train_multi.multi_plot_step = real
+    n_plots = len(scenes)
+    per_step = n_plots * MULTI_VIEWS
+    for k in ("decode_cull", "composite_train_fwd", "composite_bwd",
+              "segsum"):
+        if launches[k] != n_iter * per_step:
+            fail(f"multi-plot path: {k} launched {launches[k]} times in "
+                 f"{n_iter} steps of {n_plots} plots x {MULTI_VIEWS} views")
+    if launches["composite_fwd"]:
+        fail("multi-plot path: the forward-only compositor ran")
+    if len(caps) != n_iter or not bool(finite):
+        fail(f"multi-plot path: {len(caps)} steps, finite losses "
+             f"{bool(finite)}")
+    if int(over) > 0:
+        fail(f"multi-plot path: a step's demand exceeded its budget by "
+             f"{int(over)} entries")
+    logs = [json.loads(ln) for ln in open(os.path.join(
+        model_base, "metrics_multi.jsonl"))]
+    last = logs[-1]
+    if last["iter"] != n_iter or not all(map(math.isfinite, last["loss"])):
+        fail(f"multi-plot path: last log {last}")
+    psnr0 = first["psnr"].tolist()
+    rise = [b - a for a, b in zip(psnr0, last["psnr"])]
+    if not min(rise) > MULTI_PSNR_RISE_DB:
+        fail(f"multi-plot path: PSNR {psnr0} -> {last['psnr']}")
+    n_init = [len(s.data.point_cloud.points) for s in scenes]
+    densify_events = len([it for it in range(densify_from + 1,
+                                             densify_until)
+                          if it % interval == 0])
+    doublings = sum(b > a for a, b in zip(caps, caps[1:]))
+    sh_changes = len(built) - 1
+    captures = sum(b.graph.captures for b in built)
+    replays = sum(b.graph.replays for b in built)
+    if last["n_alive"] == n_init or densify_events < 1:
+        fail(f"multi-plot path: no densify event ({n_init} -> "
+             f"{last['n_alive']})")
+    if captures > densify_events + doublings + sh_changes + 1 or \
+            replays != n_iter - captures:
+        fail(f"multi-plot graph: {captures} captures, {replays} replays "
+             f"({densify_events} densify events, {doublings} doublings)")
+    plys = []
+    for s in scenes:
+        ply = os.path.join(s.model_path, "point_cloud",
+                           f"iteration_{n_iter}", "point_cloud.ply")
+        st, sh = load_ply(ply, device=DEVICE)
+        plys.append(int(st.num_alive))
+    if plys != last["n_alive"]:
+        fail(f"multi-plot PLYs hold {plys} splats, the log {last['n_alive']}")
+
+    # One step from copies of the trained states: P = 2 eagerly (twice,
+    # for the spread of eager runs), each plot alone (P = 1), and a
+    # replay of the P = 2 step's graph from the same state.
+    w, h = scenes[0].image_size
+    gts = torch.stack([torch.as_tensor(s.data.train.images, device=DEVICE)
+                       for s in scenes])
+    banks = [torch.stack(list(c)) for c in zip(
+        *(s.cam_stack("train") for s in scenes))]
+    extents = [float(s.cameras_extent) for s in scenes]
+    opt = built[-1].opt
+    bg = torch.zeros(3, device=DEVICE)
+    rows = torch.arange(n_plots, device=DEVICE)[:, None]
+
+    def inputs(vi, plots, it, t):
+        """The step's arguments as the app gathers them."""
+        sel = training.to_device(vi, dev)
+        pr = rows[plots]
+        return (tuple(c[pr, sel] for c in banks), gts[pr, sel], bg,
+                training.to_device(training.plot_scalars(
+                    it, t, opt, [extents[p] for p in plots]), dev))
+
+    for b in built:
+        b.graph.release()
+    app_kernels = check_app_kernels(states, banks, gts, built[-1].sh_degree,
+                                    opt)
+    vi = np.array([[1, 4], [2, 7]])
+    start = G.map_tensors(torch.clone, states)
+    t1 = start.adam.step + 1
+
+    def copy(plots):
+        return G.map_tensors(lambda x: x[plots], start)
+
+    def eager(plots):
+        """A fresh step's first call: the step runs eagerly (the capture
+        that follows it runs nothing)."""
+        return training.multi_plot_step(3, w, h, opt)(
+            copy(plots), *inputs(vi[plots], plots, 20_001, t1))
+
+    (a1, m1), (a2, m2) = eager([0, 1]), eager([0, 1])
+    alone = [eager([p]) for p in range(n_plots)]
+    replayed = copy([0, 1])
+    snap = [t.clone() for t in training.state_tensors(replayed)]
+    rstep = training.multi_plot_step(3, w, h, opt)
+    rstep(replayed, *inputs(vi, [0, 1], 20_001, t1))
+    for t, s0 in zip(training.state_tensors(replayed), snap):
+        t.copy_(s0)
+    _, mr = rstep(replayed, *inputs(vi, [0, 1], 20_001, t1))
+    if rstep.graph.replays != 1:
+        fail(f"multi-plot replay: {rstep.graph.replays} replays")
+    torch.cuda.synchronize()
+    rstep.graph.release()
+
+    def diff(sa, ma, pa, sb, mb, pb):
+        """Max |a - b| over plot pa of sa and plot pb of sb, every state
+        tensor and metric."""
+        out = [float((x[pa].double() - y[pb].double()).abs().max())
+               for x, y in zip(training.state_tensors(sa),
+                               training.state_tensors(sb))]
+        out += [float((ma[k][pa].double() - mb[k][pb].double()).abs())
+                for k in training.PLOT_METRICS]
+        return out
+
+    spread = [max(x, y) for x, y in zip(diff(a1, m1, 0, a2, m2, 0),
+                                        diff(a1, m1, 1, a2, m2, 1))]
+    vs_alone = [max(x, y) for x, y in zip(*(
+        diff(a1, m1, p, *alone[p], 0)
+        for p in range(n_plots)))]
+    vs_replay = [max(x, y) for x, y in zip(*(
+        diff(a1, m1, p, replayed, mr, p) for p in range(n_plots)))]
+    for name, d in (("single-plot steps", vs_alone),
+                    ("its replay", vs_replay)):
+        bad = [i for i, (x, y) in enumerate(zip(d, spread)) if x > y]
+        if bad:
+            fail(f"multi-plot step against {name} beyond the eager spread "
+                 f"at {[(i, d[i], spread[i]) for i in bad]}")
+
+    # Steady rates at SH 3, after each configuration's capture, in turns.
+    rng = np.random.default_rng(5)
+    configs = {}
+    for plots, b in (([0], 1), ([0], 2), ([0, 1], 1), ([0, 1], 2)):
+        configs[(len(plots), b)] = (plots, b, copy(plots),
+                                    training.multi_plot_step(3, w, h, opt))
+    its = iter(range(30_001, 10 ** 9))
+
+    def turn(key, n):
+        """n iterations of the app's loop body: picks, gathers, the
+        scalar rows, the step."""
+        plots, b, st, step = configs[key]
+        for _ in range(n):
+            v = rng.integers(len(banks[0][0]), size=(len(plots), b))
+            step(st, *inputs(v, plots, next(its), st.adam.step + 1))
+            st.adam.step += 1
+        torch.cuda.synchronize()
+
+    for key in configs:
+        turn(key, 2)                # capture, then one replay
+    times = {key: [] for key in configs}
+    order = (list(configs) + list(configs)[::-1]) * MULTI_RATE_ROUNDS
+    for key in order:
+        t0 = time.perf_counter()
+        turn(key, MULTI_RATE_STEPS)
+        times[key].append(time.perf_counter() - t0)
+    rates = {}
+    for (p, b), ts in times.items():
+        step_s = sum(ts) / (len(ts) * MULTI_RATE_STEPS)
+        rates[f"P{p}_B{b}"] = dict(
+            ms_per_step=step_s * 1e3, plot_it_per_s=1.0 / step_s,
+            plot_iterations_per_s=p / step_s, turns_s=ts,
+            turn_spread=(max(ts) - min(ts)) / (sum(ts) / len(ts)))
+    # ms a step against the renders in it (P·B), least squares over every
+    # turn: a cost per render and a cost per step whatever its size.
+    x = np.array([p * b for (p, b), ts in times.items() for _ in ts])
+    y = np.array([t * 1e3 / MULTI_RATE_STEPS for ts in times.values()
+                  for t in ts])
+    per_render, per_step = np.polyfit(x, y, 1)
+    fit = dict(ms_per_render=float(per_render), ms_per_step=float(per_step),
+               max_abs_residual_ms=float(np.abs(
+                   y - (per_render * x + per_step)).max()))
+    busy = device_busy(lambda: turn((2, 2), MULTI_BUSY_STEPS))
+    busy["steps"] = MULTI_BUSY_STEPS
+    rate_peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    return dict(
+        seconds=seconds, generate_seconds=gen_seconds, iterations=n_iter,
+        plots=n_plots, views_per_step=MULTI_VIEWS, launches=launches,
+        initial_points=n_init, capacity=caps[-1],
+        entry_budget=default_budget(caps[-1]), n_alive=last["n_alive"],
+        psnr_first=psnr0, psnr_last=last["psnr"], loss_last=last["loss"],
+        demand_over_budget_max=int(over), densify_events=densify_events,
+        capacity_doublings=doublings, captures=captures, replays=replays,
+        capture_seconds=[x for b in built for x in b.graph.capture_seconds],
+        peak_memory_gb=peak_gb, rates_peak_memory_gb=rate_peak_gb,
+        single_vs_multi_bit_identical=not any(vs_alone),
+        replay_vs_eager_bit_identical=not any(vs_replay),
+        eager_runs_bit_identical=not any(spread),
+        max_abs_multi_vs_single=max(vs_alone),
+        max_abs_replay_vs_eager=max(vs_replay),
+        max_abs_eager_vs_eager=max(spread), app_kernels=app_kernels,
+        rates=rates, rate_fit=fit, busy=busy)
+
+
 def check_probe() -> dict:
     """Phase 16: the scan probe's kinds against the plain version, at the
     cluster's edges, repeated and at 0 steps; timed at 256 and 64 steps
@@ -2210,6 +2580,27 @@ def main() -> None:
     probe = check_probe()
     say("probe", **probe)
 
+    # 19. several plots trained in one process
+    mpp = multi_plot_path(scene_dir)
+    say("multi_plot_path", **mpp)
+    print("multi-plot: " + ", ".join(
+        f"{k} {r['ms_per_step']:.2f} ms a step ({r['plot_it_per_s']:.2f} "
+        f"it/s a plot, {r['plot_iterations_per_s']:.2f} plot-it/s)"
+        for k, r in mpp["rates"].items())
+        + f" at SH 3, {BENCH['width']}x{BENCH['height']}; device busy "
+        f"{mpp['busy']['device_busy_share']:.1%} at P2_B2; training run "
+        f"{mpp['seconds']:.1f} s for {mpp['iterations']} iterations, "
+        f"{mpp['captures']} captures, peak {mpp['peak_memory_gb']:.2f} GiB;"
+        f" {smi}", flush=True)
+    print("multi-plot kernels against the plain path: " + ", ".join(
+        f"plot {r['plot']} at capacity {r['capacity']}, budget "
+        f"{r['entry_budget']} ({r['entries']} entries): gradient "
+        f"{max(r['grad_rel_of_max'].values()):.2e} of its max, colour "
+        f"{r['colour_pixels_off']} pixels off"
+        for r in mpp["app_kernels"]) + "; a replayed step "
+        f"{mpp['rate_fit']['ms_per_step']:.3f} ms + "
+        f"{mpp['rate_fit']['ms_per_render']:.3f} ms a render", flush=True)
+
     src = "wheat3dgs_tpu_torch/csrc/"
     tpu = "wheat3dgs_tpu/ops/pallas_raster.py:"
     keys = ("value_rows", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2239,7 +2630,8 @@ def main() -> None:
                          "360_head": hp["launches"][name],
                          "viewer": vp["launches"][name],
                          "pipeline_script": pp["launches"][name],
-                         "eval_script": pp["eval_script"]["launches"][name]},
+                         "eval_script": pp["eval_script"]["launches"][name],
+                         "multi_plot": mpp["launches"][name]},
                      "segmentation_shapes": [
                          {k: x.get(k) for k in keys} for x in shapes]})
     # The probe's row: the cumsum kind (torch.cumsum computes the same

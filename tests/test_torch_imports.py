@@ -4,7 +4,8 @@
   imports jax or the JAX package (a sys.modules check cannot show this:
   the interpreter here may preload jax), nor sklearn, pandas, pydantic or
   yaml, which the port does not depend on.
-- Entry points asked for the default device raise when no card is present.
+- Entry points asked for the default device raise when no card is present
+  (the multi-plot trainer among them).
 - chip_smoke.py exits non-zero and prints no result without a card, and
   when it stands alone outside the repo.
 """
@@ -163,6 +164,23 @@ def test_metrics_360_and_viewer_refuse_without_card(tmp_path, app):
             "viewer_app": ["-s", str(tmp_path), "-m", str(tmp_path)]}[app]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mod.main(argv)
+
+
+@pytest.mark.parametrize("selector", ["--source_base", "--source_paths"])
+def test_train_multi_refuses_without_card(tmp_path, selector):
+    """The multi-plot trainer raises before it reads a plot, whichever
+    way the plots are named."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from wheat3dgs_tpu_torch.apps import train_multi
+
+    (tmp_path / "plot_1").mkdir()
+    plots = str(tmp_path if selector == "--source_base"
+                else tmp_path / "plot_1")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_multi.main([selector, plots, "--model_base",
+                          str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists()
 
 
 @pytest.mark.parametrize("alone", [False, True])

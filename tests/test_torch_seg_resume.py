@@ -84,3 +84,72 @@ def test_run_segmentation_resume(scene_and_model, tmp_path):
         np.testing.assert_array_equal(
             load_pt(os.path.join(res["out_dir"], "2DSeg", f)),
             load_pt(os.path.join(full["out_dir"], "2DSeg", f)))
+
+
+def _counting_find_match(monkeypatch):
+    """Count run_segmentation's calls of find_match_device."""
+    from wheat3dgs_tpu_torch.seg import pipeline as TP
+
+    calls = []
+    real = TP.find_match_device
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(TP, "find_match_device", counted)
+    return calls
+
+
+def test_run_segmentation_without_resume_starts_afresh(
+        scene_and_model, tmp_path, monkeypatch):
+    """resume=False ignores a loop_state.npz (JAX's run_segmentation
+    resume flag): the rerun lifts every mask again and finds what one run
+    from the start finds."""
+    from wheat3dgs_tpu_torch.seg.pipeline import run_segmentation
+
+    ctx = _context(*scene_and_model)
+    calls = _counting_find_match(monkeypatch)
+    full = run_segmentation(ctx, str(tmp_path / "full"), "r", verbose=False)
+    n_full = len(calls)
+    stop = sum(len(p) for p in ctx.mask_paths) // 2
+    run_segmentation(ctx, str(tmp_path / "again"), "r", verbose=False,
+                     _stop_after_masks=stop)
+    assert os.path.exists(os.path.join(tmp_path, "again", "wheat-head", "r",
+                                       "loop_state.npz"))
+    del calls[:]
+    res = run_segmentation(_context(*scene_and_model),
+                           str(tmp_path / "again"), "r", verbose=False,
+                           resume=False)
+    assert len(calls) == n_full
+    assert res["num_heads"] == full["num_heads"]
+    # The same rows; an overlap head's letter counts the img/ dirs already
+    # there (find_new_mask_dir), as JAX's does, so it may come later.
+    assert [[r[0][:4]] + r[1:] for r in _rows(res["out_dir"])] == \
+        [[r[0][:4]] + r[1:] for r in _rows(full["out_dir"])]
+
+
+@pytest.mark.parametrize("rounds", [0, 1, 99])
+def test_run_segmentation_max_refine_rounds(rounds, scene_and_model,
+                                            tmp_path, monkeypatch, capsys):
+    """Each head re-matches at most max_refine_rounds times after its
+    first match (JAX's `for _ in range(1, max_refine_rounds + 1)`): one
+    find_match per lifted mask, plus exactly `rounds` re-matches per head
+    for 0 and 1 (no head can stop sooner than after one), at least one
+    per head for 99."""
+    from wheat3dgs_tpu_torch.seg.pipeline import run_segmentation
+
+    ctx = _context(*scene_and_model)
+    calls = _counting_find_match(monkeypatch)
+    capsys.readouterr()
+    res = run_segmentation(ctx, str(tmp_path / "seg"), "r", verbose=True,
+                           max_refine_rounds=rounds)
+    log = capsys.readouterr().out
+    lifted = log.count("==== lifting ")
+    heads = log.count("==== head ")
+    assert heads >= res["num_heads"] >= 1
+    refines = len(calls) - lifted
+    if rounds < 99:
+        assert refines == rounds * heads
+    else:
+        assert refines >= heads

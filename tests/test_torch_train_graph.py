@@ -159,3 +159,59 @@ def test_stale_graph_is_recaptured(scene):
         torch.cuda.synchronize()
         assert graphed.graph.captures == captures + 1, name
         _assert_equal(graphed, eager, mg, me, name)
+
+
+@pytest.mark.gpu
+def test_multi_plot_step_replays_equal_eager_steps(scene):
+    """training.multi_plot_step at P = 2 plots (two copies of the scene's
+    state, one of them reset) x B = 2 views: its first call runs eagerly
+    and captures, later calls replay; every call equals each plot's
+    train_step_views run eagerly, bit for bit, and counts P x B launches of
+    each training kernel. An opacity reset of the stacked state (new
+    tensors) makes the next call recapture."""
+    from wheat3dgs_tpu_torch import training as T
+    from wheat3dgs_tpu_torch.parallel.mesh import stack_states
+
+    dev = _card()
+    w, h = scene.image_size
+    opt = cfg.OptimizationParams()
+    plots = [_clone(scene.gaussians), G.reset_opacity(
+        _clone(scene.gaussians))]
+    singles = [_clone(p) for p in plots]
+    states = stack_states([_clone(p) for p in plots])
+    stacks = scene.cam_stack("train")
+    gts = torch.as_tensor(scene.data.train.images, device=dev)
+    bg = torch.zeros(3, device=dev)
+    extents = [scene.cameras_extent, 2.0 * scene.cameras_extent]
+    step = T.multi_plot_step(3, w, h, opt)
+    for call in range(4):
+        if call == 3:
+            states = G.reset_opacity(states)
+            singles = [G.reset_opacity(s) for s in singles]
+        vi = torch.tensor([[call, call + 3], [call + 5, call + 1]],
+                          device=dev)
+        rows = torch.arange(2, device=dev)[:, None]
+        cams = tuple(torch.stack([a, a])[rows, vi] for a in stacks)
+        gsel = torch.stack([gts, gts])[rows, vi]
+        scalars = T.plot_scalars(call + 1, states.adam.step + 1, opt,
+                                 extents).to(dev)
+        cuda_build.reset_launches()
+        states, m = step(states, cams, gsel, bg, scalars)
+        torch.cuda.synchronize()
+        counted = dict(cuda_build.launches)
+        states.adam.step += 1
+        for p in range(2):
+            _, mp = T.train_step_views(
+                singles[p], tuple(c[p] for c in cams), gsel[p], bg,
+                scalars[p], sh_degree=3, width=w, height=h, opt=opt)
+            singles[p].adam.step += 1
+            mine = G.map_tensors(lambda x: x[p], states)
+            for x, y in zip(T.state_tensors(mine),
+                            T.state_tensors(singles[p])):
+                assert torch.equal(x, y), (call, p)
+            for k in T.PLOT_METRICS:
+                assert torch.equal(m[k][p], mp[k].to(m[k].dtype)), \
+                    (call, p, k)
+        for k in TRAIN_KERNELS:
+            assert counted[k] == 4, (call, k, counted[k])
+    assert step.graph.captures == 2 and step.graph.replays == 2

@@ -24,22 +24,18 @@ import torch
 from ..ops.knn import knn_mean_sq_dist
 from ..utils import graphics
 
-# The JAX generator's defaults (wheat3dgs_tpu/io/synthetic.py).
+# The JAX generator's constants (wheat3dgs_tpu/io/synthetic.py).
 COLOR_NOISE = 0.15      # per-point colour stddev (texture pins fine splats)
 SPLAT_SCALE = 0.9       # splat size as a fraction of the 3-NN distance
 FOV = 0.9
-CAM_RADIUS = 2.2
-CAM_ELEV_DEG = 40.0
-POINT_JITTER = 0.02     # noise on the COLMAP points3D subsample
-# Detector-visibility gate of the masks (_write_view_masks).
-MIN_VISIBILITY = 0.35   # visible share of a head's amodal footprint
-MIN_MASK_FRAC = 6e-4    # visible share of the image
 
 
 def _scene_points(rng: np.random.Generator, n_heads: int, pts_per_head: int,
-                  ground_pts: int):
+                  ground_pts: int, head_centers=None):
     """Returns (points, colors, head_id) with head_id 0 = ground; the same
-    draws, in the same order, as the JAX generator."""
+    draws, in the same order, as the JAX generator. head_centers: optional
+    (n_heads, 2) xy positions in place of uniform-random ones (adjacent
+    heads on purpose)."""
     color_noise = COLOR_NOISE
     pts, cols, hid = [], [], []
     g = np.stack([rng.uniform(-1.2, 1.2, ground_pts),
@@ -50,7 +46,10 @@ def _scene_points(rng: np.random.Generator, n_heads: int, pts_per_head: int,
     cols.append(base + rng.normal(0, color_noise, (ground_pts, 3)))
     hid.append(np.zeros(ground_pts, np.int32))
     for h in range(n_heads):
-        cx, cy = rng.uniform(-0.8, 0.8, 2)
+        if head_centers is not None:
+            cx, cy = float(head_centers[h][0]), float(head_centers[h][1])
+        else:
+            cx, cy = rng.uniform(-0.8, 0.8, 2)
         cz = rng.uniform(0.35, 0.55)
         axis = rng.normal(0, 0.08, 3) + np.array([0, 0, 1.0])
         axis /= np.linalg.norm(axis)
@@ -68,15 +67,18 @@ def _scene_points(rng: np.random.Generator, n_heads: int, pts_per_head: int,
             np.concatenate(hid))
 
 
-def _ring_cameras(n: int, radius: float, elev_deg: float,
+def _ring_cameras(n: int, radius: float, elev_deg,
                   center=(0.0, 0.0, 0.2)):
     """COLMAP (qvec, tvec) for n cameras on a ring looking at `center`
-    (+z forward, +y down)."""
+    (+z forward, +y down). elev_deg: one elevation, or one per ring row
+    (row i // 12, as the FIP image names count)."""
     out = []
     center = np.asarray(center)
-    elev = np.deg2rad(elev_deg)
+    elevs = (list(elev_deg) if isinstance(elev_deg, (list, tuple))
+             else [elev_deg])
     for i in range(n):
         ang = 2 * np.pi * i / n
+        elev = np.deg2rad(elevs[(i // 12) % len(elevs)])
         eye = center + radius * np.array(
             [np.cos(ang) * np.cos(elev), np.sin(ang) * np.cos(elev),
              np.sin(elev)])
@@ -102,14 +104,14 @@ def _image_name(plot_id: int, i: int, n_cams: int) -> str:
 
 
 def gt_params(n_heads: int = 4, pts_per_head: int = 120,
-              ground_pts: int = 900, seed: int = 0):
+              ground_pts: int = 900, seed: int = 0, head_centers=None):
     """The generator's ground-truth scene: (rng, params dict of numpy
     GaussianParams fields, colors, head_id). Isotropic splats sized by the
     3-NN distance, opacity logit 4, SH degree 0 (colours are rendered as
     override colours). The rng is returned for the draws that follow."""
     rng = np.random.default_rng(seed)
     points, colors, head_id = _scene_points(rng, n_heads, pts_per_head,
-                                            ground_pts)
+                                            ground_pts, head_centers)
     n = len(points)
     dist = np.sqrt(np.maximum(knn_mean_sq_dist(points), 1e-12))
     log_scales = np.log(np.clip(dist * SPLAT_SCALE, 1e-4, 0.1))
@@ -143,7 +145,8 @@ def cam_args(qvec, tvec, proj, fovx, fovy, device):
 
 
 def _build_gt_scene(width: int, height: int, n_cams: int, n_heads: int,
-                    pts_per_head: int, ground_pts: int, seed: int, dev):
+                    pts_per_head: int, ground_pts: int, seed: int, dev,
+                    cam_radius: float, cam_elev_deg, head_centers):
     """The ground-truth scene shared by full synthesis and mask-only
     regeneration: (rng, params, colors, head_id, state, cameras, per-camera
     render arguments, focal length, raster config)."""
@@ -151,7 +154,7 @@ def _build_gt_scene(width: int, height: int, n_cams: int, n_heads: int,
     from ..render.pipeline import adapt_config
 
     rng, params, colors, head_id = gt_params(n_heads, pts_per_head,
-                                             ground_pts, seed)
+                                             ground_pts, seed, head_centers)
     state = init_state(GaussianParams(**{
         k: torch.as_tensor(v, device=dev) for k, v in params.items()}),
         instance_id=head_id)
@@ -159,7 +162,7 @@ def _build_gt_scene(width: int, height: int, n_cams: int, n_heads: int,
     fovx = graphics.focal2fov(fx, width)
     fovy = graphics.focal2fov(fx, height)
     proj = graphics.projection_matrix(0.01, 100.0, fovx, fovy)
-    cams = _ring_cameras(n_cams, radius=CAM_RADIUS, elev_deg=CAM_ELEV_DEG)
+    cams = _ring_cameras(n_cams, radius=cam_radius, elev_deg=cam_elev_deg)
     args = [cam_args(q, t, proj, fovx, fovy, dev) for q, t in cams]
     config = adapt_config(state, args[0], width, height, cams=args)
     return rng, params, colors, head_id, state, cams, args, fx, config
@@ -198,7 +201,9 @@ def _solidify_cropped(mask: np.ndarray) -> np.ndarray:
 
 
 def _write_view_masks(out_dir: str, image_name: str, state, n_heads: int,
-                      args, width: int, height: int, config) -> None:
+                      args, width: int, height: int, config,
+                      min_visibility: float = 0.35,
+                      min_mask_frac: float = 6e-4) -> None:
     """Visible-surface per-head masks and bboxes for one view.
 
     Real SAM masks (reference README.md:36-45) cover only the visible
@@ -206,8 +211,8 @@ def _write_view_masks(out_dir: str, image_name: str, state, n_heads: int,
     map (the reference eval_obj_labels rule: per pixel, the nearest head
     with alpha > 0.5 wins), solidified. Detector-visibility gate (a stand-in
     for YOLO's confidence threshold): a head's mask is written only when its
-    visible area is >= MIN_VISIBILITY of its amodal footprint (the head
-    rendered alone) and >= MIN_MASK_FRAC of the image."""
+    visible area is >= min_visibility of its amodal footprint (the head
+    rendered alone) and >= min_mask_frac of the image."""
     from PIL import Image
 
     from ..seg.eval import eval_obj_labels
@@ -218,13 +223,13 @@ def _write_view_masks(out_dir: str, image_name: str, state, n_heads: int,
                                    height=height, config=config,
                                    with_areas=True)
     pred, amodal = pred.cpu().numpy(), amodal.cpu().numpy()
-    min_px = max(12, int(MIN_MASK_FRAC * width * height))
+    min_px = max(12, int(min_mask_frac * width * height))
     boxes = []
     mask_k = 0
     for h in range(1, n_heads + 1):
         mask = _solidify_cropped(pred == h)
         vis = int(mask.sum())
-        if vis < min_px or vis < MIN_VISIBILITY * max(int(amodal[h]), 1):
+        if vis < min_px or vis < min_visibility * max(int(amodal[h]), 1):
             continue
         ys, xs = np.where(mask)
         boxes.append([xs.min(), ys.min(), xs.max(), ys.max()])
@@ -245,12 +250,22 @@ def make_synthetic_colmap_scene(
     pts_per_head: int = 120,
     ground_pts: int = 900,
     seed: int = 0,
+    point_jitter: float = 0.02,
     with_masks: bool = True,
+    cam_radius: float = 2.2,
+    cam_elev_deg=40.0,
+    head_centers=None,
+    min_visibility: float = 0.35,
+    min_mask_frac: float = 6e-4,
     device="cuda",
 ) -> dict:
     """Create the dataset on disk; returns a manifest dict. The COLMAP
-    points3D are a jittered subsample of the true points. with_masks=False
-    writes empty bbox files and no masks."""
+    points3D are a subsample of the true points with N(0, point_jitter)
+    noise. with_masks=False writes empty bbox files and no masks. The
+    cameras sit on a ring of radius cam_radius at cam_elev_deg (one
+    elevation, or one per ring row of 12); head_centers (n_heads, 2)
+    places the heads; min_visibility / min_mask_frac gate each head's mask
+    (_write_view_masks)."""
     from PIL import Image
 
     from .. import resolve_device
@@ -260,7 +275,8 @@ def make_synthetic_colmap_scene(
     dev = resolve_device(device)
     (rng, params, colors, head_id, state, cams, args, fx,
      config) = _build_gt_scene(width, height, n_cams, n_heads, pts_per_head,
-                               ground_pts, seed, dev)
+                               ground_pts, seed, dev, cam_radius,
+                               cam_elev_deg, head_centers)
     n = len(colors)
     colors_cap = torch.zeros((state.capacity, 3), dtype=torch.float32,
                              device=dev)
@@ -287,7 +303,7 @@ def make_synthetic_colmap_scene(
             os.path.join(out_dir, "images", name))
         if with_masks:
             _write_view_masks(out_dir, name[:-4], state, n_heads, a, width,
-                              height, config)
+                              height, config, min_visibility, min_mask_frac)
         else:
             _save_bboxes(os.path.join(out_dir, "bboxes", name[:-4] + ".pt"),
                          np.zeros((0, 4), np.float32))
@@ -296,7 +312,7 @@ def make_synthetic_colmap_scene(
     colmap.write_intrinsics_binary(os.path.join(sparse, "cameras.bin"), intr)
     colmap.write_extrinsics_binary(os.path.join(sparse, "images.bin"), extr)
     sub = rng.choice(n, size=max(n // 2, 64), replace=False)
-    noisy = params["means"][sub] + rng.normal(0, POINT_JITTER, (len(sub), 3))
+    noisy = params["means"][sub] + rng.normal(0, point_jitter, (len(sub), 3))
     colmap.write_points3D_binary(
         os.path.join(sparse, "points3D.bin"), noisy.astype(np.float64),
         (colors[sub] * 255).astype(np.uint8))
@@ -317,6 +333,11 @@ def regen_masks(
     pts_per_head: int = 120,
     ground_pts: int = 900,
     seed: int = 0,
+    cam_radius: float = 2.2,
+    cam_elev_deg=40.0,
+    head_centers=None,
+    min_visibility: float = 0.35,
+    min_mask_frac: float = 6e-4,
     device="cuda",
 ) -> None:
     """Rewrite masks/ and bboxes/ of an existing synthetic scene (the same
@@ -327,7 +348,8 @@ def regen_masks(
     dev = resolve_device(device)
     (_, _, _, _, state, _, args, _,
      config) = _build_gt_scene(width, height, n_cams, n_heads, pts_per_head,
-                               ground_pts, seed, dev)
+                               ground_pts, seed, dev, cam_radius,
+                               cam_elev_deg, head_centers)
     for d in ("masks", "bboxes"):
         full = os.path.join(out_dir, d)
         if os.path.isdir(full):
@@ -337,7 +359,8 @@ def regen_masks(
             os.makedirs(full)
     for i, a in enumerate(args):
         _write_view_masks(out_dir, _image_name(plot_id, i, n_cams)[:-4],
-                          state, n_heads, a, width, height, config)
+                          state, n_heads, a, width, height, config,
+                          min_visibility, min_mask_frac)
 
 
 def _save_bboxes(path: str, boxes: np.ndarray) -> None:

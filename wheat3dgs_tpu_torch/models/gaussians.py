@@ -17,7 +17,7 @@ reads the leaves from the state it is given each time.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -82,6 +82,34 @@ class GaussianState:
     def sh(self) -> torch.Tensor:
         """Flat (C, 3K) coefficients ([k0_rgb, k1_rgb, ...])."""
         return torch.cat([self.params.sh_dc, self.params.sh_rest], dim=1)
+
+
+def map_tensors(fn: Callable[..., torch.Tensor],
+                *states: GaussianState) -> GaussianState:
+    """A state whose every tensor is fn(the states' tensors at that place):
+    the port's jax.tree.map over GaussianStates (e.g. x[p] of a stacked
+    state, or torch.stack of several). The Adam step count is an int
+    outside the tensors; the states must agree on it."""
+    steps = {s.adam.step for s in states}
+    if len(steps) != 1:
+        raise ValueError(f"states at different Adam steps {sorted(steps)}")
+
+    def each(get):
+        return fn(*[get(s) for s in states])
+
+    return GaussianState(
+        params=GaussianParams(**{
+            f: each(lambda s, f=f: getattr(s.params, f))
+            for f in PARAM_FIELDS}),
+        alive=each(lambda s: s.alive),
+        instance_id=each(lambda s: s.instance_id),
+        adam=AdamState(
+            mu={k: each(lambda s, k=k: s.adam.mu[k])
+                for k in states[0].adam.mu},
+            nu={k: each(lambda s, k=k: s.adam.nu[k])
+                for k in states[0].adam.nu},
+            step=steps.pop()),
+        **{f: each(lambda s, f=f: getattr(s, f)) for f in STAT_FIELDS})
 
 
 def _round_capacity(n: int) -> int:
@@ -173,15 +201,7 @@ def grow_capacity(state: GaussianState, new_capacity: int) -> GaussianState:
         out[:cap] = x
         return out
 
-    def pad_all(d):
-        return {k: pad(v) for k, v in d.items()}
-
-    return GaussianState(
-        params=GaussianParams(**pad_all(state.params.as_dict())),
-        alive=pad(state.alive), instance_id=pad(state.instance_id),
-        adam=AdamState(mu=pad_all(state.adam.mu), nu=pad_all(state.adam.nu),
-                       step=state.adam.step),
-        **{f: pad(getattr(state, f)) for f in STAT_FIELDS})
+    return map_tensors(pad, state)
 
 
 # ---------------------------------------------------------------------------

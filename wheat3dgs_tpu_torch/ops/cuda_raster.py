@@ -66,6 +66,12 @@ MAX_SPAN = 1024      # tiles one splat may cover (center-cropped beyond)
 PLAIN_TILE_BATCH = 64    # tiles per step of the plain compositor
 PLAIN_CHUNK = 128        # entries per step of the plain compositor
 
+def default_budget(n: int) -> int:
+    """The entry budget of a render at `entry_budget=0`: 16 entries per
+    splat slot, 128-aligned, at least 1024 (as in JAX)."""
+    return max(1024, -(-16 * n // CHUNK) * CHUNK)
+
+
 def _rank_bits(t_total: int) -> int:
     return 32 - max(1, math.ceil(math.log2(t_total + 1)))
 
@@ -801,9 +807,8 @@ def rasterize_fwd(
     c = splats.color.shape[1] if with_color else 0
     if 7 + c + int(with_depth) > FEAT:
         raise ValueError("too many color channels")
-    n = splats.xy.shape[0]
     if entry_budget <= 0:
-        entry_budget = max(1024, -(-16 * n // CHUNK) * CHUNK)
+        entry_budget = default_budget(splats.xy.shape[0])
     if entry_budget % CHUNK:
         raise ValueError("entry_budget must be 128-aligned")
 
@@ -877,9 +882,8 @@ def rasterize(
     c = splats.color.shape[1]
     if c > FEAT - 8:
         raise ValueError(f"at most {FEAT - 8} colour channels")
-    n = splats.xy.shape[0]
     if entry_budget <= 0:
-        entry_budget = max(1024, -(-16 * n // CHUNK) * CHUNK)
+        entry_budget = default_budget(splats.xy.shape[0])
     if entry_budget % CHUNK:
         raise ValueError("entry_budget must be 128-aligned")
 

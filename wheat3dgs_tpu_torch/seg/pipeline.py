@@ -42,11 +42,6 @@ from ..render.pipeline import RasterConfig
 from ..utils import image_ops
 from . import flashsplat
 
-# Refinement rounds per head: lift the new matches, re-match (the reference
-# loops until nothing new matches; this only bounds a pathological run).
-MAX_REFINE_ROUNDS = 99
-
-
 def save_pt(obj: np.ndarray, path: str) -> None:
     """Reference artifacts are torch tensors (.pt)."""
     torch.save(torch.from_numpy(np.ascontiguousarray(obj)), path)
@@ -341,16 +336,20 @@ def run_segmentation(ctx: SegContext, out_dir: str, exp_name: str,
                      iou_threshold: float = 0.6, seed: int = 0,
                      eval_names: Sequence[str] = (),
                      eval_cams: Optional[tuple] = None,
-                     verbose: bool = True,
+                     max_refine_rounds: int = 99,
+                     verbose: bool = True, resume: bool = True,
                      _stop_after_masks: Optional[int] = None) -> Dict:
     """The find-&-match loop (reference training(), run_3d_seg.py:182).
 
-    Returns a summary dict and writes the reference artifact tree. The loop
-    state (instance labels, processed-mask set, head counter, position in
-    the shuffled mask order) checkpoints beside the periodic 2DSeg-map
-    saves, and a rerun into the same artifact dir picks up from the last
-    checkpoint. `_stop_after_masks` stops after that many
-    masks at a consistent checkpoint (a test hook for the resume path)."""
+    Returns a summary dict and writes the reference artifact tree. Each
+    head runs at most max_refine_rounds rounds of lift, re-match after its
+    first match (the reference loops until nothing new matches; the
+    default only bounds a pathological run). The loop state (instance labels, processed-mask set, head
+    counter, position in the shuffled mask order) checkpoints beside the
+    periodic 2DSeg-map saves; with resume, a rerun into the same artifact
+    dir picks up from the last checkpoint, and without it starts afresh.
+    `_stop_after_masks` stops after that many masks at a consistent
+    checkpoint (a test hook for the resume path)."""
     log = print if verbose else (lambda *a, **k: None)
     dev = ctx.state.device
     base = os.path.join(out_dir, "wheat-head", exp_name)
@@ -364,7 +363,7 @@ def run_segmentation(ctx: SegContext, out_dir: str, exp_name: str,
         f.write(f"exp_name {exp_name}\niou_threshold {iou_threshold}\n")
     loop_ckpt = os.path.join(base, "loop_state.npz")
     ck = None
-    if os.path.exists(loop_ckpt):
+    if resume and os.path.exists(loop_ckpt):
         ck = dict(np.load(loop_ckpt, allow_pickle=False))
         log(f"==== resuming at mask {int(ck['next_exp_id'])} "
             f"({int(ck['num_wheat_head'])} heads so far) ====")
@@ -470,7 +469,7 @@ def run_segmentation(ctx: SegContext, out_dir: str, exp_name: str,
 
         # Refinement: lift the newly matched masks, re-optimise, re-match
         # (run_3d_seg.py:297-323).
-        for _ in range(1, MAX_REFINE_ROUNDS + 1):
+        for _ in range(1, max_refine_rounds + 1):
             for ci, p in zip(new_idx, new_paths):
                 counts += ctx.cached_counts(ci, p)
             counts[1:, pts_filter] = 0.0

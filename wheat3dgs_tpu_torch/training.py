@@ -3,8 +3,9 @@
 Counterpart of wheat3dgs_tpu/training.py (reference: the hot loop of
 train_vanilla_3dgs.py:55-121):
 
-- `train_step`: render -> (1-λ)L1 + λ(1-SSIM) -> gradients -> Adam ->
-  densification statistics. It is written functionally, as JAX's
+- `train_step_views` (a minibatch of B views; `train_step` calls it with
+  one view): render -> (1-λ)L1 + λ(1-SSIM) -> gradients -> Adam
+  -> densification statistics. It is written functionally, as JAX's
   `value_and_grad` is: the parameters are plain tensors, the step takes
   fresh leaves of them and calls `torch.autograd.grad(loss, leaves)` (plus
   a zero `ndc_offset`, whose gradient is the CUDA rasterizer's viewspace
@@ -14,6 +15,11 @@ train_vanilla_3dgs.py:55-121):
   leaf's learning rate, Adam's bias corrections) come in one float32 row
   on the device (`step_scalars`), so a step captured in a CUDA graph
   reads each step's values.
+- `multi_plot_step` (`MultiPlotStep`): one step of P independent plots x
+  B views each on states stacked on a leading P axis (the scale-out the
+  reference leaves to one SLURM job per plot). The plots run one after
+  another on the card, each on views into the stack; on a CUDA device the
+  whole step is replayed from a CUDA graph.
 - `Trainer`: camera-independent schedule — SH warm-up, random background
   from a torch.Generator, the entry-budget ladder (the JAX Pallas branch of
   `_refresh_occupancy`; the port has no XLA backend), the deferred overflow
@@ -24,8 +30,6 @@ train_vanilla_3dgs.py:55-121):
   (`training_graph.StepGraph`), on the CPU as K eager steps of the same
   code.
 
-JAX's `train_step_views` / `multi_plot_step` (view and plot batches for the
-scale-out slice) have no counterpart here yet.
 """
 
 from __future__ import annotations
@@ -49,6 +53,10 @@ from .utils.general import expon_lr
 SCALARS = G.PARAM_FIELDS + ("c1", "c2")
 # Metrics a block keeps of its last step (entries_total is its maximum).
 LAST_METRICS = ("loss", "l1", "psnr", "n_alive")
+# The (P,) metrics of a multi-plot step and their dtypes.
+PLOT_METRICS = {"loss": torch.float32, "l1": torch.float32,
+                "psnr": torch.float32, "n_alive": torch.int64,
+                "entries_total": torch.int32}
 
 
 def lr_tree(it: int, opt: OptimizationParams,
@@ -81,31 +89,48 @@ def step_scalars(it0: int, t0: int, n: int, opt: OptimizationParams,
     return torch.tensor(rows, dtype=torch.float64).to(torch.float32)
 
 
-def train_step(state: G.GaussianState, cam, gt_image: torch.Tensor,
-               bg: torch.Tensor, scalars: torch.Tensor, *, sh_degree: int,
-               width: int, height: int, opt: OptimizationParams,
-               config: RasterConfig = RasterConfig()):
-    """One optimisation step on one view (reference semantics), updating
-    `state`'s parameters, Adam moments and statistics in place.
+def train_step_views(state: G.GaussianState, cams, gt_images: torch.Tensor,
+                     bg: torch.Tensor, scalars: torch.Tensor, *,
+                     sh_degree: int, width: int, height: int,
+                     opt: OptimizationParams,
+                     config: RasterConfig = RasterConfig()):
+    """One optimisation step over a minibatch of B views (JAX's
+    train_step_views over its _step_core): cams are (w2c, full_proj,
+    cam_center, tanfovx, tanfovy) with a leading B axis, gt_images
+    (B, 3, H, W); otherwise as `train_step`. B = 1 is the reference's
+    single-view step.
 
-    cam: (w2c, full_proj, cam_center, tanfovx, tanfovy); gt_image (3, H, W);
-    scalars: this step's (len(SCALARS),) float32 row on the state's device
-    (`step_scalars`; the caller advances state.adam.step). Launches
-    nothing that reads the host, so it can be captured in a CUDA graph.
-    Returns (state, metrics) with 0-d tensor metrics (nothing is read back
-    to the host): loss, l1, psnr, n_alive and entries_total (the render's
-    allocation demand; > config.entry_budget means entries were cropped).
-    """
+    For B > 1 the loss, L1 and the views' MSE (hence PSNR) are means over
+    the views, radii and entries_total maxima, and the gradients those of
+    the mean loss. As in JAX, the shared `ndc_offset`'s gradient (already
+    that of the view mean) is divided by B again before it reaches the
+    densification statistics: they accumulate |sum of the views'
+    viewspace gradients| / B^2."""
+    b = gt_images.shape[0]
     params = state.params.as_dict()
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     ndc_zero = torch.zeros((state.capacity, 2), dtype=torch.float32,
                            device=state.device, requires_grad=True)
     view = dataclasses.replace(state, params=G.GaussianParams(**leaves))
-    out = render(view, *cam, width, height, sh_degree, bg=bg,
-                 ndc_offset=ndc_zero, config=config)
-    ll1 = l1_loss(out.color, gt_image)
-    loss = (1.0 - opt.lambda_dssim) * ll1 + opt.lambda_dssim * (
-        1.0 - ssim(out.color, gt_image))
+
+    def one_view(i):
+        out = render(view, *(a[i] for a in cams), width, height, sh_degree,
+                     bg=bg, ndc_offset=ndc_zero, config=config)
+        ll1 = l1_loss(out.color, gt_images[i])
+        loss = (1.0 - opt.lambda_dssim) * ll1 + opt.lambda_dssim * (
+            1.0 - ssim(out.color, gt_images[i]))
+        return loss, ll1, out.color, out.radii, out.entries_total
+
+    if b == 1:
+        loss, ll1, color, radii, entries = one_view(0)
+        colors = [color]
+    else:
+        views = [one_view(i) for i in range(b)]
+        loss = torch.stack([v[0] for v in views]).mean()
+        ll1 = torch.stack([v[1] for v in views]).mean()
+        colors = [v[2] for v in views]
+        radii = torch.stack([v[3] for v in views]).amax(0)
+        entries = torch.stack([v[4] for v in views]).amax()
     names = list(leaves)
     inputs = [leaves[k] for k in names] + [ndc_zero]
     grads = torch.autograd.grad(loss, inputs, allow_unused=True)
@@ -115,14 +140,142 @@ def train_step(state: G.GaussianState, cam, gt_image: torch.Tensor,
     adam_update(state.adam, dict(zip(names, grads[:-1])), params,
                 dict(zip(G.PARAM_FIELDS, scalars[:n_lr])), scalars[n_lr],
                 scalars[n_lr + 1])
-    G.add_densification_stats(state, grads[-1], out.radii)
+    G.add_densification_stats(state, grads[-1] if b == 1 else grads[-1] / b,
+                              radii)
     with torch.no_grad():
-        mse = ((out.color - gt_image) ** 2).mean()
+        mses = [((c - gt_images[i]) ** 2).mean()
+                for i, c in enumerate(colors)]
+        mse = mses[0] if b == 1 else torch.stack(mses).mean()
         metrics = {"loss": loss.detach(), "l1": ll1.detach(),
                    "psnr": 20.0 * -torch.log10(torch.sqrt(mse)),
                    "n_alive": state.num_alive,
-                   "entries_total": out.entries_total}
+                   "entries_total": entries}
     return state, metrics
+
+
+def train_step(state: G.GaussianState, cam, gt_image: torch.Tensor,
+               bg: torch.Tensor, scalars: torch.Tensor, *, sh_degree: int,
+               width: int, height: int, opt: OptimizationParams,
+               config: RasterConfig = RasterConfig()):
+    """One optimisation step on one view (reference semantics), updating
+    `state`'s parameters, Adam moments and statistics in place.
+
+    cam: (w2c, full_proj, cam_center, tanfovx, tanfovy) tensors; gt_image
+    (3, H, W); scalars: this step's (len(SCALARS),) float32 row on the
+    state's device (`step_scalars`; the caller advances state.adam.step).
+    Launches nothing that reads the host, so it can be captured in a CUDA
+    graph. Returns (state, metrics) with 0-d tensor metrics (nothing is
+    read back to the host): loss, l1, psnr, n_alive and entries_total (the
+    render's allocation demand; > config.entry_budget means entries were
+    cropped).
+    """
+    return train_step_views(state, tuple(a[None] for a in cam),
+                            gt_image[None], bg, scalars, sh_degree=sh_degree,
+                            width=width, height=height, opt=opt,
+                            config=config)
+
+
+def to_device(host, dev: torch.device) -> torch.Tensor:
+    """A host array or tensor on `dev`; on a CUDA device through pinned
+    memory, so the copy queues behind the running step instead of waiting
+    for it."""
+    host = torch.as_tensor(host)
+    if dev.type != "cuda":
+        return host
+    return host.pin_memory().to(dev, non_blocking=True)
+
+
+def plot_scalars(it: int, t: int, opt: OptimizationParams,
+                 extents) -> torch.Tensor:
+    """(P, len(SCALARS)) float32 on the host: row p is step_scalars(it, t)
+    at plot p's extent (each plot's position learning rate scales with its
+    own extent, JAX's lr_tree per plot)."""
+    return torch.cat([step_scalars(it, t, 1, opt, float(e))
+                      for e in extents])
+
+
+class MultiPlotStep:
+    """JAX's multi_plot_step for one SH degree, image size, optimiser and
+    raster config: call it as step(states, cams, gt_images, bg, scalars).
+
+    states: a GaussianState whose tensors are stacked on a leading P axis
+    (`parallel.mesh.stack_states`; contiguous (P, cap, ...)), updated in
+    place; cams: (w2c, full_proj, cam_center, tanfovx, tanfovy) with
+    leading (P, B) axes; gt_images (P, B, 3, H, W); bg (3,); scalars
+    (P, len(SCALARS)) (`plot_scalars`; the caller advances
+    states.adam.step). Returns (states, metrics) with (P,) tensors: loss,
+    l1, psnr, n_alive and entries_total.
+
+    Each plot's step is `train_step_views` on views into the stacked
+    tensors, so Adam and the statistics write into the stack. The inputs
+    are copied into device tensors that stay put, and the step runs
+    through one `StepGraph` (`graph`): replayed from a CUDA graph on a CUDA
+    device, recaptured when a state tensor (densify, capacity growth,
+    opacity reset), the shapes or the entry budget change; run eagerly on
+    the CPU."""
+
+    def __init__(self, sh_degree: int, width: int, height: int,
+                 opt: OptimizationParams,
+                 config: RasterConfig = RasterConfig()):
+        self.sh_degree, self.width, self.height = sh_degree, width, height
+        self.opt, self.config = opt, config
+        self.graph = StepGraph()
+        self._inputs = []
+        self._out = {}
+
+    def __call__(self, states: G.GaussianState, cams, gt_images, bg,
+                 scalars):
+        args = list(cams) + [gt_images, bg, scalars]
+        dev = states.device
+        if [(a.shape, a.dtype) for a in args] != [
+                (b.shape, b.dtype) for b in self._inputs] or (
+                self._inputs and self._inputs[0].device != dev):
+            self._inputs = [torch.empty_like(a, device=dev) for a in args]
+            n = gt_images.shape[0]
+            self._out = {k: torch.zeros((n,), dtype=dt, device=dev)
+                         for k, dt in PLOT_METRICS.items()}
+        for buf, a in zip(self._inputs, args):
+            buf.copy_(a)
+        self.graph.run(lambda: self._step(states), 1, self._key(states), dev)
+        return states, {k: v.clone() for k, v in self._out.items()}
+
+    def _step(self, states: G.GaussianState) -> None:
+        *cams, gts, bg, scalars = self._inputs
+        ms = []
+        for p in range(gts.shape[0]):
+            _, m = train_step_views(
+                G.map_tensors(lambda x: x[p], states),
+                tuple(a[p] for a in cams), gts[p], bg, scalars[p],
+                sh_degree=self.sh_degree, width=self.width,
+                height=self.height, opt=self.opt, config=self.config)
+            ms.append(m)
+        for k, buf in self._out.items():
+            buf.copy_(torch.stack([m[k] for m in ms]))
+
+    def _key(self, states: G.GaussianState) -> tuple:
+        """What the captured step bakes in: the address and shape of every
+        state tensor and static input and output (the capacity among the
+        shapes), the SH degree, the image size, the raster config (the
+        entry budget) and the optimiser's constants."""
+        tensors = (state_tensors(states) + self._inputs
+                   + list(self._out.values()))
+        return (tuple((t.data_ptr(), tuple(t.shape)) for t in tensors),
+                self.sh_degree, self.width, self.height, self.config,
+                self.opt)
+
+
+def state_tensors(s: G.GaussianState) -> list:
+    """Every tensor of a state, in a fixed order (for graph keys, copies
+    and comparisons)."""
+    return (list(s.params.as_dict().values()) + list(s.adam.mu.values())
+            + list(s.adam.nu.values())
+            + [s.alive, s.instance_id, s.grad_accum, s.denom,
+               s.max_radii2d])
+
+
+# JAX's name: multi_plot_step(sh_degree, width, height, opt, config) builds
+# the step over P plots x B views (JAX vmaps its _step_core over the plots).
+multi_plot_step = MultiPlotStep
 
 
 class Trainer:
@@ -178,13 +331,6 @@ class Trainer:
                                               entry_budget=budget)
         self._occupancy_due = False
 
-    def _to_device(self, host: torch.Tensor) -> torch.Tensor:
-        dev = self.state.device
-        if dev.type != "cuda":
-            return host
-        # Pinned, so the copy queues behind the step instead of waiting.
-        return host.pin_memory().to(dev, non_blocking=True)
-
     def _background(self) -> torch.Tensor:
         if self.opt.random_background:   # reference train loop :67
             return torch.rand((3,), generator=self.generator,
@@ -199,8 +345,9 @@ class Trainer:
         if self.adaptive_occupancy and self._occupancy_due:
             self._refresh_occupancy(cam, width, height)
         bg = self._background()
-        row = self._to_device(step_scalars(it, self.state.adam.step + 1, 1,
-                                           self.opt, self.extent))[0]
+        row = to_device(step_scalars(it, self.state.adam.step + 1, 1,
+                                     self.opt, self.extent),
+                        self.state.device)[0]
         self.state, metrics = train_step(
             self.state, cam, gt_image, bg, row,
             sh_degree=self.active_sh_degree, width=width, height=height,
@@ -245,7 +392,7 @@ class Trainer:
                           torch.tensor(views, dtype=torch.float32)[:, None]],
                          dim=1)
         self._block_buffers(n_steps)
-        self._table[:n_steps].copy_(self._to_device(host))
+        self._table[:n_steps].copy_(to_device(host, self.state.device))
         self._j.zero_()
         self._block_max.zero_()
         self._bg.copy_(bg)
@@ -298,11 +445,7 @@ class Trainer:
         budget, the active SH degree and the image size. Densify/prune,
         capacity growth, opacity reset and a checkpoint load replace state
         tensors, so each changes the key."""
-        s = self.state
-        tensors = (list(s.params.as_dict().values())
-                   + list(s.adam.mu.values()) + list(s.adam.nu.values())
-                   + [s.alive, s.grad_accum, s.denom, s.max_radii2d]
-                   + list(cam_stacks)
+        tensors = (state_tensors(self.state) + list(cam_stacks)
                    + [gt_stack, self._table, self._j, self._block_max,
                       self._bg]
                    + list(self._last.values()))

@@ -61,10 +61,32 @@ def is_overlapping(box1, box2) -> bool:
     return not (x1a < x0b or x1b < x0a or y1a < y0b or y1b < y0a)
 
 
+def calculate_bbox_iou(box1, box2) -> float:
+    x0 = max(box1[0], box2[0])
+    y0 = max(box1[1], box2[1])
+    x1 = min(box1[2], box2[2])
+    y1 = min(box1[3], box2[3])
+    inter = max(0, x1 - x0) * max(0, y1 - y0)
+    a1 = (box1[2] - box1[0]) * (box1[3] - box1[1])
+    a2 = (box2[2] - box2[0]) * (box2[3] - box2[1])
+    union = a1 + a2 - inter
+    return inter / union if union > 0 else 0.0
+
+
 def calculate_seg_iou(mask1: np.ndarray, mask2: np.ndarray) -> float:
     inter = np.logical_and(mask1, mask2).sum()
     union = np.logical_or(mask1, mask2).sum()
     return float(inter / union) if union > 0 else 0.0
+
+
+def calculate_precision(pred: np.ndarray, gt: np.ndarray) -> float:
+    inter = np.logical_and(pred, gt).sum()
+    return float(inter / pred.sum()) if pred.sum() > 0 else 0.0
+
+
+def calculate_recall(pred: np.ndarray, gt: np.ndarray) -> float:
+    inter = np.logical_and(pred, gt).sum()
+    return float(inter / gt.sum()) if gt.sum() > 0 else 0.0
 
 
 def id2rgb(idx: int, max_num_obj: int = 999) -> np.ndarray:
@@ -79,6 +101,11 @@ def id2rgb(idx: int, max_num_obj: int = 999) -> np.ndarray:
     s = 0.5 + (idx % 2) * 0.5
     r, g, b = colorsys.hls_to_rgb(h, 0.5, s)
     return np.array([r * 255, g * 255, b * 255], np.uint8)
+
+
+def palette(n: int) -> np.ndarray:
+    """(n+1, 3) uint8 palette for ids 0..n."""
+    return np.stack([id2rgb(i) for i in range(n + 1)])
 
 
 def visualize_obj(objects: np.ndarray) -> np.ndarray:
