@@ -56,6 +56,11 @@ when run outside a checkout of the repo. Phases, each reported on a line:
    budget, with depth (1 value row) and on an all-empty frame (an all-zero
    image), all timed; the forward compositors' sub-tile cull counted at
    every forward shape of phases 4, 6 and 9 (cuda_raster.fwd_block_steps);
+   composite_train_fwd's counting build at 9 rows (LiftOut.contrib_num)
+   against the plain walk's per-pixel count (off pixels under
+   STOP_MISMATCH_MAX, as the stop), bit-identical over two launches, with
+   the image and stop of the build without, timed in turns with it; and
+   lift_view's used_count and contrib_num against the all-plain path;
 10. segmentation path: `apps/run_3d_seg_app.main` on the bench scene and
    the stand-in model with the launch counters reset just before and read
    just after: the artifact tree, the head ids in the 2DSeg maps, the
@@ -129,7 +134,17 @@ when run outside a checkout of the repo. Phases, each reported on a line:
    stepped alone and against its own replay (bit-identical, or within the
    spread of two eager runs), the steady rates at SH 3 for P = 1, 2 and
    B = 1, 2 in turns on the host clock, and the device's busy share;
-20. a `kernels` JSON line, then the device line last.
+20. bench: `python -m wheat3dgs_tpu_torch.apps.bench` as its own process
+   on phase 3's scene (the bench plot) at its default 600 iterations: its
+   one JSON line with bench.py's keys, every value finite and positive,
+   no training overflow and no render over its budget, and the kernel
+   launches of that process, printed; then the kernels against their
+   plain versions at the bench's shapes: apps/bench's functions train the
+   scene again in this process to its end (~105k splats), the training
+   kernels held as in phase 19 at the Trainer's probed budget and SH 3,
+   and render_fwd at the render rate's probed budget, on two train views,
+   with the budget and capacity printed;
+21. a `kernels` JSON line, then the device line last.
 Work files go to `_smoke_work/` in the checkout and are removed on success.
 """
 
@@ -242,6 +257,11 @@ MULTI_BUSY_STEPS = 5
 # Each plot's training PSNR after MULTI_ITERS iterations must beat its
 # first step's by this many dB.
 MULTI_PSNR_RISE_DB = 1.0
+# Phase 20: apps/bench's default iterations and the keys of its line
+# (bench.py's).
+BENCH_ITERS = 600
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline", "mean_ms",
+              "median_ms", "n_splats", "render_fps"]
 # cuda_time_ms, bound, fwd_bound and smi_line are bound in main(), from the
 # port's utils/cuda_timing, once the port is found next to this script.
 
@@ -1019,6 +1039,7 @@ def check_seg_kernels(scene, scene_dir: str):
         fail(f"composite_train_fwd at nv=9: stop differs on {stop_off} "
              "pixels")
     _, (visited, weighted) = CR.composite_fwd_plain(*fargs, with_counts=True)
+    count = check_count(fargs, img_k, stop_k, stop_p)
     fwd = dict(value_rows=nv, ms=cuda_time_ms(
         lambda: CR.composite_train_fwd(*fargs), 20), plain_ms=fwd_plain_ms,
         max_abs_err=float(err.max()), stop_pixels_differing=stop_off,
@@ -1030,6 +1051,11 @@ def check_seg_kernels(scene, scene_dir: str):
         entries * 8 + plan.t_total * 8 + feat.numel() * 4
         + ((1 + nv) * 4 + 4) * w * h,
         visited * 14 + weighted * (4 + 2 * (1 + nv)))
+    count["bound_ms"], count["bound_by"] = bound(
+        entries * 8 + plan.t_total * 8 + feat.numel() * 4
+        + ((1 + nv) * 4 + 8) * w * h,
+        visited * 14 + weighted * (5 + 2 * (1 + nv)))
+    fwd["count"] = count
 
     # The label planes are the cotangent of the 8 colour rows.
     grad = torch.zeros_like(img_k)
@@ -1082,6 +1108,29 @@ def check_seg_kernels(scene, scene_dir: str):
         lambda: flashsplat.lift_batch8(*lift_args, **lift_kw), 5),
         max_rel_err_of_row_max=lift_rel, masks=len(paths),
         entry_budget=budget)
+    # lift_view (ops/mask_lift.lift_mask) on the same masks as one label
+    # image: used_count as lift_batch8's, contrib_num from the counting
+    # build, both against the all-plain path.
+    labels = torch.zeros((h, w), dtype=torch.int64, device=DEVICE)
+    for i, r in enumerate(rows[:min(7, len(paths))]):
+        labels[torch.as_tensor(r, device=DEVICE)] = i + 1
+    view_args = (st, *cam, labels)
+    view_kw = dict(num_obj=7, width=w, height=h, config=config)
+    out = flashsplat.lift_view(*view_args, **view_kw)
+    with plain_kernels():
+        ref = flashsplat.lift_view(*view_args, **view_kw)
+    row_max = ref.used_count.abs().amax(dim=1, keepdim=True).clamp(
+        min=1e-30)
+    view_rel = float(((out.used_count - ref.used_count).abs()
+                      / row_max).max())
+    view_off = int((out.contrib_num != ref.contrib_num).sum())
+    if (view_rel > LIFT_REL or view_off > STOP_MISMATCH_MAX * w * h
+            or int(out.contrib_num.max()) <= 1):
+        fail(f"lift_view differs from the all-plain path: used_count "
+             f"{view_rel} of the row max, contrib_num on {view_off} pixels")
+    lift["lift_view"] = dict(max_rel_err_of_row_max=view_rel,
+                             contrib_pixels_differing=view_off,
+                             contrib_max=int(out.contrib_num.max()))
 
     # composite_fwd at the subset renders' shapes: alpha-only at the subset
     # budget (match / predbits), with depth at the scene's (eval).
@@ -1136,6 +1185,45 @@ def check_seg_kernels(scene, scene_dir: str):
     r["bound_ms"], r["bound_by"] = bound(w * h * 4, 0)
     comp.append(r)
     return fwd, bwd, seg, comp, lift
+
+
+def check_count(fargs, img_k, stop_k, stop_p) -> dict:
+    """Phase 9: composite_train_fwd's counting build (the lift's
+    contrib_num) at 9 rows against the plain walk's per-pixel count: equal
+    but on at most STOP_MISMATCH_MAX of the pixels (where an alpha at
+    exactly 1/255 or the transmittance floor rounds the other way, as for
+    the stop); its image and stop equal to the build's without the count;
+    two launches bit-identical; timed in turns with the build without."""
+    import torch
+
+    from wheat3dgs_tpu_torch.ops import cuda_raster as CR
+
+    w, h = fargs[-2:]
+    img_c, stop_c, count_k = check_repeatable(
+        "composite_train_fwd with its count at nv=9",
+        lambda *a: CR.composite_train_fwd(*a, with_contrib=True), fargs)
+    (_, _, count_p), plain_ms = timed_once(
+        lambda: CR.composite_train_fwd_plain(*fargs, with_contrib=True))
+    if not (torch.equal(img_c, img_k) and torch.equal(stop_c, stop_k)):
+        fail("composite_train_fwd's counting build: its image or stop "
+             "differs from the build's without the count")
+    diff = (count_k - count_p).abs()
+    off = int((diff > 0).sum())
+    if off > STOP_MISMATCH_MAX * w * h or int(count_k.max()) <= 1:
+        fail(f"composite_train_fwd's count differs from its plain version "
+             f"on {off} pixels (max {int(diff.max())})")
+    # In turns: without the count, with it, with it, without it.
+    turns = [cuda_time_ms(lambda: CR.composite_train_fwd(
+        *fargs, with_contrib=c), 20) for c in (False, True, True, False)]
+    return dict(value_rows=9, ms=(turns[1] + turns[2]) / 2,
+                ms_without_count=(turns[0] + turns[3]) / 2, turns_ms=turns,
+                plain_ms=plain_ms, max_abs_err=float(diff.max()),
+                pixels_differing=off, stop_pixels_differing=int(
+                    (stop_k != stop_p).sum()),
+                off_where_stop_differs=int(((diff > 0) & (
+                    stop_k != stop_p)).sum()),
+                count_sum=int(count_k.sum()),
+                plain_count_sum=int(count_p.sum()), repeat_bit_equal=True)
 
 
 def seg_path(scene_dir: str, model_dir: str) -> dict:
@@ -1872,12 +1960,9 @@ else:
 """
 
 
-def run_script(script: str, args: list, env: dict, log_name: str) -> dict:
-    """Run one of the port's pipeline scripts under bash with `python` on
-    PATH going through STEP_RUNNER; its steps (argv, seconds, launches),
-    exit code and seconds. Its output goes to WORK/<log_name>."""
-    import subprocess
-
+def step_runner() -> str:
+    """WORK/bin, made on first use: STEP_RUNNER and a `python` shim that
+    runs every call through it."""
     bindir = os.path.join(WORK, "bin")
     if not os.path.isdir(bindir):
         os.makedirs(bindir)
@@ -1888,6 +1973,16 @@ def run_script(script: str, args: list, env: dict, log_name: str) -> dict:
             f.write(f'#!/bin/sh\nexec "{sys.executable}" '
                     f'"{os.path.join(bindir, "step_runner.py")}" "$@"\n')
         os.chmod(shim, 0o755)
+    return bindir
+
+
+def run_script(script: str, args: list, env: dict, log_name: str) -> dict:
+    """Run one of the port's pipeline scripts under bash with `python` on
+    PATH going through STEP_RUNNER; its steps (argv, seconds, launches),
+    exit code and seconds. Its output goes to WORK/<log_name>."""
+    import subprocess
+
+    bindir = step_runner()
     step_log = os.path.join(WORK, log_name + ".steps")
     if os.path.exists(step_log):
         os.remove(step_log)
@@ -1915,6 +2010,128 @@ def run_script(script: str, args: list, env: dict, log_name: str) -> dict:
                 steps=[{"step": " ".join(st["argv"][:2]),
                         "seconds": st["seconds"],
                         "launches": st["launches"]} for st in steps])
+
+
+def bench_path(scene_dir: str) -> dict:
+    """Phase 20: `python -m wheat3dgs_tpu_torch.apps.bench` as its own
+    process (through STEP_RUNNER, which logs the process's seconds and
+    kernel launches) on phase 3's scene, the bench plot, at the default
+    WHEAT3DGS_BENCH_ITERS: one JSON line on stdout with bench.py's keys,
+    every value finite and positive, no training overflow event and no
+    render over its budget (the bench's stderr lines), each training
+    kernel launched on every step."""
+    import math
+    import re
+    import subprocess
+
+    bindir = step_runner()
+    step_log = os.path.join(WORK, "bench.steps")
+    if os.path.exists(step_log):
+        os.remove(step_log)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("WHEAT3DGS_BENCH_")}
+    env.update(WHEAT3DGS_BENCH_SCENE=scene_dir, SMOKE_STEP_LOG=step_log,
+               PYTHONPATH=os.pathsep.join(
+                   [ROOT] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                             else [])))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(bindir, "step_runner.py"), "-m",
+         "wheat3dgs_tpu_torch.apps.bench"], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=SCRIPT_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"apps/bench exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    if len(lines) != 1:
+        fail(f"apps/bench printed {len(lines)} stdout lines, not one")
+    line = json.loads(lines[0])
+    if list(line) != BENCH_KEYS or line["metric"] != "train_iters_per_sec" \
+            or line["unit"] != "it/s":
+        fail(f"apps/bench's line has other keys or names: {line}")
+    for k in BENCH_KEYS:
+        v = line[k]
+        if not isinstance(v, str) and not (math.isfinite(v) and v > 0):
+            fail(f"apps/bench's {k} is {v}")
+    overflow = re.search(r"overflow_events=(\d+)", proc.stderr)
+    demand = re.search(r"demand max (\d+) of budget (\d+)", proc.stderr)
+    if overflow is None or demand is None:
+        fail("apps/bench's stderr lacks its overflow or demand report")
+    overflow, demand, budget = (int(overflow.group(1)),
+                                int(demand.group(1)), int(demand.group(2)))
+    if overflow or demand > budget:
+        fail(f"apps/bench went over its budget: {overflow} training "
+             f"overflow events, render demand {demand} of {budget}")
+    with open(step_log) as f:
+        launches = json.loads(f.read().splitlines()[-1])["launches"]
+    # apps/bench's default iterations, its step at the warm-up iteration
+    # and its three rung blocks of 20.
+    steps = BENCH_ITERS + 1 + 3 * 20
+    for k in ("composite_train_fwd", "composite_bwd", "segsum"):
+        if launches.get(k, 0) < steps:
+            fail(f"apps/bench launched {k} {launches.get(k, 0)} times for "
+                 f"{steps} steps")
+    return dict(seconds=seconds, line=line, launches=launches,
+                overflow_events=overflow, render_demand=demand,
+                render_budget=budget,
+                stderr=[ln for ln in proc.stderr.splitlines()
+                        if not ln.startswith(("I0000", "W0000"))][-8:])
+
+
+def check_bench_kernels(scene_dir: str) -> dict:
+    """Phase 20: the kernels against their plain versions at the shapes the
+    bench gives them. apps/bench's own functions train phase 3's scene in
+    this process as its run does (load_scene, then train: the warm-up, the
+    rung blocks and the timed windows at BENCH_ITERS, densified past the
+    warm-up); then on the first and last train views hold_step at the
+    Trainer's probed budget and SH 3, and render_fwd (decode_cull,
+    composite_fwd) at the render rate's adapt_config budget against the
+    all-plain path: demand under the budget, colour and alpha within
+    COMPOSITE_ATOL / COMPOSITE_RTOL but on the ALPHA_MIN pixels of
+    hold_step, held under STOP_MISMATCH_MAX."""
+    import torch
+
+    from wheat3dgs_tpu_torch.apps import bench
+    from wheat3dgs_tpu_torch.render.pipeline import render_fwd
+
+    dev = torch.device(DEVICE)
+    scene = bench.load_scene(scene_dir, dev)
+    trainer, cams, _, _ = bench.train(scene, BENCH_ITERS, dev)
+    trainer.graph.release()
+    w, h = scene.image_size
+    gts = torch.as_tensor(scene.data.train.images, device=dev)
+    views = (0, len(cams) - 1)
+    train = [dict(view=i, **hold_step(
+        trainer.state, cams[i], gts[i], 3, trainer.opt, trainer.config,
+        f"bench kernels, train view {i}")) for i in views]
+    config = bench.render_config(trainer, cams, w, h)
+    renders = []
+    for i in views:
+        def once():
+            out = render_fwd(trainer.state, *cams[i], w, h, sh_degree=3,
+                             config=config)
+            return (torch.cat([out.color, out.alpha[None]]),
+                    int(out.entries_total))
+
+        img, demand = once()
+        with plain_kernels():
+            ref, _ = once()
+        where = f"bench render_fwd, train view {i}"
+        if demand > config.entry_budget:
+            fail(f"{where}: demand {demand} over budget "
+                 f"{config.entry_budget}")
+        if not bool(torch.isfinite(img).all()):
+            fail(f"{where}: non-finite colour or alpha")
+        err = (img - ref).abs()
+        off = int((err > COMPOSITE_ATOL + COMPOSITE_RTOL
+                   * ref.abs()).any(0).sum())
+        if off > STOP_MISMATCH_MAX * w * h:
+            fail(f"{where}: colour or alpha differs from the plain path on "
+                 f"{off} pixels, by up to {float(err.max())}")
+        renders.append(dict(view=i, entry_budget=config.entry_budget,
+                            entries=demand, max_abs_err=float(err.max()),
+                            pixels_off=off))
+    return dict(train=train, render=renders)
 
 
 def pipeline_path(scene_dir: str) -> dict:
@@ -1969,80 +2186,88 @@ def pipeline_path(scene_dir: str) -> dict:
                 eval_script=ev)
 
 
-def check_app_kernels(states, cams, gts, sh_degree: int, opt) -> list:
-    """Phase 19: the four training kernels against their plain versions at
-    the shapes the multi-plot app gives them: each trained plot on its
-    first train view at RasterConfig() (the app's automatic budget of 16
-    entries a slot), at the run's capacity and at its doubling (the app's
-    pad_cap). The step's loss is differentiated with respect to every
-    parameter and the viewspace hook (the densification statistics' input)
-    on the kernel path and on the all-plain path; each gradient is held
-    within GRAD_REL of its max |value|. The colour image is held within
-    COMPOSITE_ATOL / COMPOSITE_RTOL except on pixels where an entry's alpha
-    lands within rounding of ALPHA_MIN (the kernel's conic power is
-    contracted to FMAs): one path keeps it and the other drops it, which
-    moves the pixel by up to ALPHA_MIN x its transmittance x its value, and
-    its stop. Those pixels are counted and held under STOP_MISMATCH_MAX of
-    the pixels, as composite_train_fwd's stops are."""
+def hold_step(st, cam, gt, sh_degree: int, opt, config, where: str) -> dict:
+    """The four training kernels against their plain versions at one state,
+    view and raster config: the step's loss is differentiated with respect
+    to every parameter and the viewspace hook (the densification
+    statistics' input) on the kernel path and on the all-plain path; each
+    gradient is held within GRAD_REL of its max |value|. The colour image
+    is held within COMPOSITE_ATOL / COMPOSITE_RTOL except on pixels where
+    an entry's alpha lands within rounding of ALPHA_MIN (the kernel's conic
+    power is contracted to FMAs): one path keeps it and the other drops
+    it, which moves the pixel by up to ALPHA_MIN x its transmittance x its
+    value, and its stop. Those pixels are counted and held under
+    STOP_MISMATCH_MAX of the pixels, as composite_train_fwd's stops are."""
     import dataclasses
 
     import torch
 
-    from wheat3dgs_tpu_torch.apps.train_multi import _pad_cap
     from wheat3dgs_tpu_torch.models import gaussians as G
     from wheat3dgs_tpu_torch.ops.cuda_raster import default_budget
     from wheat3dgs_tpu_torch.ops.losses import photometric_loss
-    from wheat3dgs_tpu_torch.render.pipeline import RasterConfig, render
+    from wheat3dgs_tpu_torch.render.pipeline import render
 
-    h, w = gts.shape[-2:]
+    h, w = gt.shape[-2:]
     bg = torch.zeros(3, device=DEVICE)
 
-    def step_grads(st, cam, gt):
+    def step_grads():
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in st.params.as_dict().items()}
         ndc = torch.zeros((st.capacity, 2), device=DEVICE,
                           requires_grad=True)
         view = dataclasses.replace(st, params=G.GaussianParams(**leaves))
         out = render(view, *cam, w, h, sh_degree, bg=bg, ndc_offset=ndc,
-                     config=RasterConfig())
+                     config=config)
         loss = photometric_loss(out.color, gt, opt.lambda_dssim)
         grads = torch.autograd.grad(loss, list(leaves.values()) + [ndc])
         return (out.color.detach(), float(loss.detach()),
                 int(out.entries_total),
                 dict(zip(list(leaves) + ["viewspace"], grads)))
 
+    color, loss, entries, got = step_grads()
+    with plain_kernels():
+        ref_color, ref_loss, _, ref = step_grads()
+    budget = config.entry_budget or default_budget(st.capacity)
+    if entries > budget:
+        fail(f"{where}: demand {entries} over budget {budget}")
+    err = (color - ref_color).abs()
+    off = int((err > COMPOSITE_ATOL + COMPOSITE_RTOL
+               * ref_color.abs()).any(0).sum())
+    if off > STOP_MISMATCH_MAX * w * h:
+        fail(f"{where}: colour image differs from the plain path on "
+             f"{off} pixels, by up to {float(err.max())}")
+    grad_rel = {}
+    for k, a in got.items():
+        top = float(ref[k].abs().max())
+        grad_rel[k] = (float((a - ref[k]).abs().max()) / top
+                       if top > 0 else 0.0)
+        if not bool(torch.isfinite(a).all()) or grad_rel[k] > GRAD_REL:
+            fail(f"{where}: gradient of {k} {grad_rel[k]} of its max "
+                 f"(bound {GRAD_REL})")
+    return dict(capacity=st.capacity, alive=int(st.num_alive),
+                entry_budget=budget, entries=entries, loss=loss,
+                plain_loss=ref_loss, colour_max_abs_err=float(err.max()),
+                colour_pixels_off=off, grad_rel_of_max=grad_rel)
+
+
+def check_app_kernels(states, cams, gts, sh_degree: int, opt) -> list:
+    """Phase 19: hold_step at the shapes the multi-plot app gives the
+    training kernels: each trained plot on its first train view at
+    RasterConfig() (the app's automatic budget of 16 entries a slot), at
+    the run's capacity and at its doubling (the app's pad_cap)."""
+    from wheat3dgs_tpu_torch.apps.train_multi import _pad_cap
+    from wheat3dgs_tpu_torch.models import gaussians as G
+    from wheat3dgs_tpu_torch.render.pipeline import RasterConfig
+
     results = []
     for doubled in (False, True):
         stacked = _pad_cap(states) if doubled else states
         for p in range(gts.shape[0]):
             st = G.map_tensors(lambda x: x[p], stacked)
-            cam = tuple(c[p, 0] for c in cams)
-            color, loss, entries, got = step_grads(st, cam, gts[p, 0])
-            with plain_kernels():
-                ref_color, ref_loss, _, ref = step_grads(st, cam, gts[p, 0])
-            where = (f"multi-plot kernels, plot {p} at capacity "
-                     f"{st.capacity}")
-            err = (color - ref_color).abs()
-            off = int((err > COMPOSITE_ATOL + COMPOSITE_RTOL
-                       * ref_color.abs()).any(0).sum())
-            if off > STOP_MISMATCH_MAX * w * h:
-                fail(f"{where}: colour image differs from the plain path on "
-                     f"{off} pixels, by up to {float(err.max())}")
-            grad_rel = {}
-            for k, a in got.items():
-                top = float(ref[k].abs().max())
-                grad_rel[k] = (float((a - ref[k]).abs().max()) / top
-                               if top > 0 else 0.0)
-                if not bool(torch.isfinite(a).all()) or \
-                        grad_rel[k] > GRAD_REL:
-                    fail(f"{where}: gradient of {k} {grad_rel[k]} of its "
-                         f"max (bound {GRAD_REL})")
-            results.append(dict(
-                plot=p, capacity=st.capacity,
-                entry_budget=default_budget(st.capacity), entries=entries,
-                loss=loss, plain_loss=ref_loss,
-                colour_max_abs_err=float(err.max()),
-                colour_pixels_off=off, grad_rel_of_max=grad_rel))
+            results.append(dict(plot=p, **hold_step(
+                st, tuple(c[p, 0] for c in cams), gts[p, 0], sh_degree,
+                opt, RasterConfig(), f"multi-plot kernels, plot {p} at "
+                f"capacity {st.capacity}")))
     return results
 
 
@@ -2601,6 +2826,25 @@ def main() -> None:
         f"{mpp['rate_fit']['ms_per_step']:.3f} ms + "
         f"{mpp['rate_fit']['ms_per_render']:.3f} ms a render", flush=True)
 
+    # 20. the bench as its own process
+    bp = bench_path(scene_dir)
+    say("bench_path", **bp)
+    print(json.dumps(bp["line"]), flush=True)
+    print(f"bench: {bp['seconds']:.1f} s, launches {bp['launches']}; "
+          f"{smi}", flush=True)
+    t0 = time.perf_counter()
+    bk = check_bench_kernels(scene_dir)
+    say("bench_kernels", seconds=time.perf_counter() - t0, **bk)
+    print("bench kernels against the plain path: " + ", ".join(
+        f"train view {r['view']} at capacity {r['capacity']} ({r['alive']} "
+        f"alive), budget {r['entry_budget']} ({r['entries']} entries): "
+        f"gradient {max(r['grad_rel_of_max'].values()):.2e} of its max, "
+        f"colour {r['colour_pixels_off']} pixels off" for r in bk["train"])
+        + "; " + ", ".join(
+        f"render_fwd view {r['view']} at budget {r['entry_budget']} "
+        f"({r['entries']} entries): {r['pixels_off']} pixels off, max abs "
+        f"err {r['max_abs_err']:.2e}" for r in bk["render"]), flush=True)
+
     src = "wheat3dgs_tpu_torch/csrc/"
     tpu = "wheat3dgs_tpu/ops/pallas_raster.py:"
     keys = ("value_rows", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2631,7 +2875,8 @@ def main() -> None:
                          "viewer": vp["launches"][name],
                          "pipeline_script": pp["launches"][name],
                          "eval_script": pp["eval_script"]["launches"][name],
-                         "multi_plot": mpp["launches"][name]},
+                         "multi_plot": mpp["launches"][name],
+                         "bench": bp["launches"].get(name, 0)},
                      "segmentation_shapes": [
                          {k: x.get(k) for k in keys} for x in shapes]})
     # The probe's row: the cumsum kind (torch.cumsum computes the same

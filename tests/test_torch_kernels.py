@@ -25,7 +25,10 @@ order, renormalised every step), at the probe's shape and at the edges of
 its one cluster (8 rows, fewer than its CTAs; rows that are no multiple of
 them; the most it holds), with 0 steps returning the input and a row past
 its capacity refused. composite_bwd, segsum and the probe sum in a fixed
-order, so two launches on the same inputs are bit-identical.
+order, so two launches on the same inputs are bit-identical. The lift's
+counting build of composite_train_fwd (9 rows) counts each pixel's
+included entries: equal to the plain walk's count but on the pixels whose
+stop differs.
 """
 
 import contextlib
@@ -200,6 +203,42 @@ def test_forward_compositors_match_plain(case, nv):
         assert not bool(img.any()) and not bool(stop.any())
     else:
         assert float(ref[0].max()) > 0.5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["edges", "cluster", "empty"])
+def test_composite_train_fwd_count_matches_plain(case):
+    """The lift's counting build of composite_train_fwd (9 value rows):
+    its per-pixel count of included entries against the plain walk's,
+    equal but on the pixels whose stop differs (the transmittance floor,
+    or an alpha at exactly 1/255, rounds the other way), bit-identical
+    over two launches, with the image and stop of the build without the
+    count; other widths are refused."""
+    dev = _card()
+    args = _forward_case(dev, case, 9)
+    width, height = args[-2:]
+    before = CR.launches["composite_train_fwd"]
+    img, stop, count = CR.composite_train_fwd(*args, with_contrib=True)
+    img2, stop2, count2 = CR.composite_train_fwd(*args, with_contrib=True)
+    timg, tstop = CR.composite_train_fwd(*args)
+    _, stop_p, count_p = CR.composite_train_fwd_plain(*args,
+                                                      with_contrib=True)
+    torch.cuda.synchronize()
+    assert CR.launches["composite_train_fwd"] == before + 3
+    assert count.dtype == torch.int32 and count.shape == (height, width)
+    assert torch.equal(count, count2) and torch.equal(img, img2)
+    assert torch.equal(stop, stop2)
+    assert torch.equal(img, timg) and torch.equal(stop, tstop)
+    off = (count != count_p) | (stop != stop_p)
+    assert int(off.sum()) <= 0.001 * width * height
+    assert torch.equal(count[~off], count_p[~off])
+    if case == "empty":
+        assert not bool(count.any())
+    else:
+        assert int(count.max()) > 1
+    with pytest.raises(ValueError):
+        CR.composite_train_fwd(*_forward_case(dev, case, 4),
+                               with_contrib=True)
 
 
 @pytest.mark.gpu

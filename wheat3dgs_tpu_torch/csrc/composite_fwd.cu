@@ -25,6 +25,10 @@
 // other way at the floor. The TPU kernel's residual (all 16 packed
 // accumulators and T_final) is not needed: only the weight sum, depth and
 // colours reach a loss, and the backward reads those rows of the image.
+// The segmentation lift's instantiation (COUNT_NV rows, with the stop) can
+// also write the (H, W) int32 count of the entries each pixel included
+// (w > 0), JAX's LiftOut.contrib_num (ops/mask_lift.py:84-92), through its
+// own C entry; every other instantiation compiles as it did without it.
 //
 // Bound on this card: operations. Each visited (pixel, entry) pair costs
 // ~12 float ops plus an exp; each weighted pair adds log1p and 2 (1 + NV)
@@ -83,6 +87,10 @@ constexpr int WARPS = THREADS / 32;
 constexpr int BATCH = THREADS;           // entries a batch, one a thread
 constexpr int BLOCKS_PER_SM = 6;         // 1536 resident threads
 constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int COUNT_NV = 9;              // the lift: depth + 8 label rows
+// The counting build needs one register more than the 40 that 6 blocks
+// allow (at 6, ptxas spilled 4 bytes), so it runs 5 blocks (48 registers).
+constexpr int COUNT_BLOCKS_PER_SM = 5;
 
 __device__ __forceinline__ float min_nan(float a, float b) {
   return (a != a || b != b) ? a + b : (a < b ? a : b);
@@ -134,15 +142,20 @@ __device__ __forceinline__ bool box_keep(float x, float y, float a, float b,
 }
 
 // Block b: sub-tile s = b % 4 (column half + 2 * row half) of tile b / 4.
-template <int NV, bool STOP>
-__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
+// COUNT (with STOP only) also counts each pixel's included entries into
+// count_out, kept beside the stop.
+template <int NV, bool STOP, bool COUNT = false>
+__global__ void __launch_bounds__(THREADS,
+                                  COUNT ? COUNT_BLOCKS_PER_SM : BLOCKS_PER_SM)
 composite_fwd_kernel(const long long* __restrict__ skeys,
                      const int* __restrict__ starts,
                      const int* __restrict__ ends,
                      const float* __restrict__ feat, int feat_cols,
                      long long rank_mask, int tiles_x, int width, int height,
                      float alpha_min, float alpha_max, float log_t_eps,
-                     float* __restrict__ out, int* __restrict__ stop_out) {
+                     float* __restrict__ out, int* __restrict__ stop_out,
+                     int* __restrict__ count_out) {
+  static_assert(STOP || !COUNT, "the count is kept beside the stop");
   __shared__ float4 s_geo[BATCH];       // x, y, power floor, sorted position
   __shared__ float4 s_conic_o[BATCH];
   __shared__ float s_val[NV > 0 ? NV : 1][BATCH];
@@ -150,6 +163,7 @@ composite_fwd_kernel(const long long* __restrict__ skeys,
   // log T, T] and the stop.
   __shared__ float s_state[NV + 3][THREADS];
   __shared__ int s_last[STOP ? THREADS : 1];
+  __shared__ int s_count[COUNT ? THREADS : 1];
   __shared__ int s_warp_kept[WARPS];
 
   // The stream's previous kernel may still be draining (see launch).
@@ -173,6 +187,7 @@ composite_fwd_kernel(const long long* __restrict__ skeys,
 #pragma unroll
       for (int v = 0; v <= NV; ++v) out[v * plane + p] = 0.0f;
       if (STOP) stop_out[p] = seg_start;
+      if (COUNT) count_out[p] = 0;
     }
     return;
   }
@@ -190,6 +205,7 @@ composite_fwd_kernel(const long long* __restrict__ skeys,
 #pragma unroll
   for (int v = 0; v < NV; ++v) acc[v] = 0.0f;
   int last = seg_start;
+  int count = 0;
   bool done = !(pxi < width && pyi < height);
 
   for (int b0 = seg_start; b0 < seg_end; b0 += BATCH) {
@@ -202,6 +218,7 @@ composite_fwd_kernel(const long long* __restrict__ skeys,
     s_state[NV + 1][tid] = log_t;
     s_state[NV + 2][tid] = trans;
     if (STOP) s_last[tid] = last;
+    if (COUNT) s_count[tid] = count;
 
     const int k = b0 + tid;
     bool keep = false;
@@ -246,6 +263,7 @@ composite_fwd_kernel(const long long* __restrict__ skeys,
     log_t = s_state[NV + 1][tid];
     trans = s_state[NV + 2][tid];
     if (STOP) last = s_last[tid];
+    if (COUNT) count = s_count[tid];
     for (int i = 0; i < n_kept && !done; ++i) {
       const float4 g = s_geo[i];
       const float4 co = s_conic_o[i];
@@ -265,6 +283,7 @@ composite_fwd_kernel(const long long* __restrict__ skeys,
             trans *= 1.0f - alpha;
             log_t = log_t_after;
             if (STOP) last = __float_as_int(g.w) + 1;
+            if (COUNT) ++count;
           }
         }
       }
@@ -278,6 +297,7 @@ composite_fwd_kernel(const long long* __restrict__ skeys,
 #pragma unroll
     for (int v = 0; v < NV; ++v) out[(v + 1) * plane + p] = acc[v];
     if (STOP) stop_out[p] = last;
+    if (COUNT) count_out[p] = count;
   }
 }
 
@@ -285,12 +305,12 @@ composite_fwd_kernel(const long long* __restrict__ skeys,
 // while the stream's previous kernel drains, and the kernel waits for that
 // kernel's results (griddepcontrol.wait) before it reads or writes global
 // memory, so stream order holds for what it reads and writes.
-template <int NV, bool STOP>
+template <int NV, bool STOP, bool COUNT = false>
 cudaError_t launch(const void* skeys, const void* starts, const void* ends,
                    const void* feat, long long rank_mask, int tiles_x,
                    int tiles_y, int width, int height, float alpha_min,
                    float alpha_max, float log_t_eps, void* out, void* stop,
-                   cudaStream_t s) {
+                   void* count, cudaStream_t s) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(4 * tiles_x * tiles_y);
   cfg.blockDim = dim3(THREADS);
@@ -301,11 +321,12 @@ cudaError_t launch(const void* skeys, const void* starts, const void* ends,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(
-      &cfg, composite_fwd_kernel<NV, STOP>,
+      &cfg, composite_fwd_kernel<NV, STOP, COUNT>,
       static_cast<const long long*>(skeys), static_cast<const int*>(starts),
       static_cast<const int*>(ends), static_cast<const float*>(feat), 6 + NV,
       rank_mask, tiles_x, width, height, alpha_min, alpha_max, log_t_eps,
-      static_cast<float*>(out), static_cast<int*>(stop));
+      static_cast<float*>(out), static_cast<int*>(stop),
+      static_cast<int*>(count));
 }
 
 template <bool STOP>
@@ -325,7 +346,7 @@ int dispatch(const void* skeys, const void* starts, const void* ends,
   case N:                                                                   \
     err = launch<N, STOP>(skeys, starts, ends, feat, mask, tiles_x,         \
                           tiles_y, width, height, alpha_min, alpha_max,     \
-                          log_t_eps, out, stop, s);                         \
+                          log_t_eps, out, stop, nullptr, s);                \
     break;
   switch (nv) {
     W3_CASE(0) W3_CASE(1) W3_CASE(2) W3_CASE(3) W3_CASE(4)
@@ -357,6 +378,23 @@ extern "C" int composite_train_fwd_launch(
   return dispatch<true>(skeys, starts, ends, feat, nv, rank_bits, tiles_x,
                         tiles_y, width, height, alpha_min, alpha_max,
                         log_t_eps, out, stop, stream);
+}
+
+// The lift's entry: composite_train_fwd at COUNT_NV rows that also writes
+// the per-pixel count of included entries. A separate entry, so the two
+// above keep their arguments and a build of either version serves them.
+extern "C" int composite_train_fwd_count_launch(
+    const void* skeys, const void* starts, const void* ends,
+    const void* feat, int nv, int rank_bits, int tiles_x, int tiles_y,
+    int width, int height, float alpha_min, float alpha_max,
+    float log_t_eps, void* out, void* stop, void* count, void* stream) {
+  if (nv != COUNT_NV) return static_cast<int>(cudaErrorInvalidValue);
+  if (tiles_x * tiles_y == 0) return static_cast<int>(cudaSuccess);
+  const cudaError_t err = launch<COUNT_NV, true, true>(
+      skeys, starts, ends, feat, (1LL << rank_bits) - 1, tiles_x, tiles_y,
+      width, height, alpha_min, alpha_max, log_t_eps, out, stop, count,
+      static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 extern "C" const char* composite_fwd_error_string(int err) {

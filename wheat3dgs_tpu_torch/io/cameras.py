@@ -52,10 +52,22 @@ class CameraMeta:
     fovy: float = 0.0
 
 
+def make_camera(R_c2w: np.ndarray, t: np.ndarray, fovx: float, fovy: float,
+                width: int, height: int,
+                translate: np.ndarray | None = None, scale: float = 1.0,
+                device="cuda") -> Cameras:
+    """A single-view Cameras batch (B = 1) from a COLMAP-style pose."""
+    return make_camera_batch([R_c2w], [t], [fovx], [fovy], width, height,
+                             translate=translate, scale=scale, device=device)
+
+
 def make_camera_batch(Rs: Sequence[np.ndarray], ts: Sequence[np.ndarray],
                       fovxs: Sequence[float], fovys: Sequence[float],
-                      width: int, height: int, device="cuda") -> Cameras:
-    """Cameras from COLMAP-style poses (C2W rotation + COLMAP translation),
+                      width: int, height: int,
+                      translate: np.ndarray | None = None,
+                      scale: float = 1.0, device="cuda") -> Cameras:
+    """Cameras from COLMAP-style poses (C2W rotation + COLMAP translation;
+    the camera centre optionally shifted by `translate` and scaled),
     built in float64 numpy exactly as the JAX package does, then moved to
     `device` as float32."""
     B = len(Rs)
@@ -65,7 +77,8 @@ def make_camera_batch(Rs: Sequence[np.ndarray], ts: Sequence[np.ndarray],
     tanx = np.zeros((B,), dtype=np.float32)
     tany = np.zeros((B,), dtype=np.float32)
     for i in range(B):
-        m = graphics.world_to_view(Rs[i], ts[i])
+        m = graphics.world_to_view(Rs[i], ts[i], translate=translate,
+                                   scale=scale)
         P = graphics.projection_matrix(ZNEAR, ZFAR, fovxs[i], fovys[i])
         w2c[i] = m.astype(np.float32)
         fp[i] = (P @ m).astype(np.float32)
@@ -79,6 +92,27 @@ def make_camera_batch(Rs: Sequence[np.ndarray], ts: Sequence[np.ndarray],
     return Cameras(w2c=dev(w2c), full_proj=dev(fp), cam_center=dev(centers),
                    tanfovx=dev(tanx), tanfovy=dev(tany), width=int(width),
                    height=int(height))
+
+
+def make_camera_from_c2w(c2w: np.ndarray, fovx: float, fovy: float,
+                         width: int, height: int, device="cuda") -> Cameras:
+    """Camera from a camera-to-world matrix (synthetic and trajectory
+    views, reference MiniCam, scene/cameras.py:100-111)."""
+    w2c = np.linalg.inv(np.asarray(c2w, dtype=np.float64))
+    R_c2w = w2c[:3, :3].T  # the reference keeps the transposed rotation
+    return make_camera(R_c2w, w2c[:3, 3], fovx, fovy, width, height,
+                       device=device)
+
+
+def concat_cameras(cams: Sequence[Cameras]) -> Cameras:
+    """One batch of several same-size batches, in order."""
+    if any(c.width != cams[0].width or c.height != cams[0].height
+           for c in cams):
+        raise ValueError("concat_cameras: batches of different sizes")
+    return Cameras(
+        *(torch.cat([getattr(c, f) for c in cams])
+          for f in ("w2c", "full_proj", "cam_center", "tanfovx", "tanfovy")),
+        width=cams[0].width, height=cams[0].height)
 
 
 def resolve_resolution(orig_w: int, orig_h: int, resolution: int,

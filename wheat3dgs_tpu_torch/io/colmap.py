@@ -209,3 +209,61 @@ def load_colmap_model(sparse_dir: str):
     else:
         points = None
     return intr, extr, points
+
+
+def write_intrinsics_text(path: str, cams: Dict[int, ColmapCamera]) -> None:
+    """COLMAP cameras.txt (viewer-fork read_write_model.py parity)."""
+    with open(path, "w") as f:
+        f.write("# Camera list with one line of data per camera:\n"
+                "#   CAMERA_ID, MODEL, WIDTH, HEIGHT, PARAMS[]\n")
+        for cam in cams.values():
+            params = " ".join(repr(float(p)) for p in cam.params)
+            f.write(f"{cam.id} {cam.model} {cam.width} {cam.height} "
+                    f"{params}\n")
+
+
+def write_extrinsics_text(path: str, images: Dict[int, ColmapImage]) -> None:
+    """COLMAP images.txt: pose line + 2D-point track line per image."""
+    with open(path, "w") as f:
+        f.write("# Image list with two lines of data per image:\n"
+                "#   IMAGE_ID, QW, QX, QY, QZ, TX, TY, TZ, CAMERA_ID, NAME\n"
+                "#   POINTS2D[] as (X, Y, POINT3D_ID)\n")
+        for im in images.values():
+            q = " ".join(repr(float(v)) for v in im.qvec)
+            t = " ".join(repr(float(v)) for v in im.tvec)
+            f.write(f"{im.id} {q} {t} {im.camera_id} {im.name}\n")
+            pts = " ".join(f"{float(x)!r} {float(y)!r} {int(pid)}"
+                           for (x, y), pid in zip(im.xys, im.point3D_ids))
+            f.write(pts + "\n")
+
+
+def write_points3D_text(path: str, xyz: np.ndarray, rgb: np.ndarray,
+                        err: np.ndarray | None = None) -> None:
+    """COLMAP points3D.txt with empty tracks."""
+    if err is None:
+        err = np.zeros(len(xyz))
+    with open(path, "w") as f:
+        f.write("# 3D point list with one line of data per point:\n"
+                "#   POINT3D_ID, X, Y, Z, R, G, B, ERROR, TRACK[]\n")
+        for i in range(len(xyz)):
+            f.write(f"{i + 1} {float(xyz[i, 0])!r} {float(xyz[i, 1])!r} "
+                    f"{float(xyz[i, 2])!r} "
+                    f"{int(rgb[i, 0])} {int(rgb[i, 1])} {int(rgb[i, 2])} "
+                    f"{float(err[i])!r}\n")
+
+
+def write_model(sparse_dir: str, intr, extr, points=None,
+                ext: str = ".bin") -> None:
+    """Write a full COLMAP sparse model (bin or txt); points is (xyz, rgb)
+    or (xyz, rgb, err)."""
+    os.makedirs(sparse_dir, exist_ok=True)
+    binary = ext == ".bin"
+    suffix = ".bin" if binary else ".txt"
+    (write_intrinsics_binary if binary else write_intrinsics_text)(
+        os.path.join(sparse_dir, "cameras" + suffix), intr)
+    (write_extrinsics_binary if binary else write_extrinsics_text)(
+        os.path.join(sparse_dir, "images" + suffix), extr)
+    if points is not None:
+        (write_points3D_binary if binary else write_points3D_text)(
+            os.path.join(sparse_dir, "points3D" + suffix), points[0],
+            points[1], points[2] if len(points) > 2 else None)

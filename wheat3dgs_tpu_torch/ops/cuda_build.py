@@ -140,14 +140,15 @@ def reset_launches() -> None:
 
 
 def launch(name: str, argtypes: list, args: tuple, device: torch.device,
-           source: str = "") -> None:
-    """Call `<name>_launch(*args, stream)` from the library built from
-    csrc/<source or name>.cu on the current stream of `device`, raise on a
-    non-zero CUDA error, and count the launch. `argtypes` are the ctypes of
-    `args` (c_void_p for every pointer, so none is cut to 32 bits)."""
+           source: str = "", entry: str = "") -> None:
+    """Call `<entry or name>_launch(*args, stream)` from the library built
+    from csrc/<source or name>.cu on the current stream of `device`, raise
+    on a non-zero CUDA error, and count the launch as kernel `name`.
+    `argtypes` are the ctypes of `args` (c_void_p for every pointer, so
+    none is cut to 32 bits)."""
     src = source or name
     lib = load(src)
-    fn = getattr(lib, f"{name}_launch")
+    fn = getattr(lib, f"{entry or name}_launch")
     if fn.argtypes is None:
         fn.argtypes = argtypes + [ctypes.c_void_p]
         fn.restype = ctypes.c_int

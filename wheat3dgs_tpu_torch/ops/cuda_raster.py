@@ -21,7 +21,9 @@ Counterpart of wheat3dgs_tpu/ops/pallas_raster.py (`_rank_bits`,
   is its plain mirror);
 - `composite_train_fwd` (kernel, the same source; replaces `_fwd_kernel`):
   the same image plus, per pixel, the sorted position one past the last
-  entry it included (the backward's stop, CUDA's `n_contrib`);
+  entry it included (the backward's stop, CUDA's `n_contrib`); at the
+  lift's 9 rows it can also count each pixel's included entries (JAX's
+  LiftOut.contrib_num), `with_contrib`;
 - `composite_bwd` (kernel, csrc/composite_bwd.cu; replaces `_bwd_kernel`):
   the front-to-back replay that writes each entry's (6 + nv) gradient row
   to its pre-sort slot;
@@ -65,6 +67,7 @@ SUB_PX = 16          # the forward compositors' work item: a 16x16 sub-tile
 MAX_SPAN = 1024      # tiles one splat may cover (center-cropped beyond)
 PLAIN_TILE_BATCH = 64    # tiles per step of the plain compositor
 PLAIN_CHUNK = 128        # entries per step of the plain compositor
+COUNT_NV = 9             # value rows of composite_train_fwd's counting build
 
 def default_budget(n: int) -> int:
     """The entry budget of a render at `entry_budget=0`: 16 entries per
@@ -268,13 +271,16 @@ def _chunk_alpha(feat_r, rank, pos, valid, px, py):
 
 def _plain_forward(skeys, starts, ends, feat_r, rank_bits: int, width: int,
                    height: int, with_stop: bool, with_counts: bool,
-                   keep: Optional[torch.Tensor] = None):
+                   keep: Optional[torch.Tensor] = None,
+                   with_contrib: bool = False):
     """The `_fwd_kernel` / `_fwd_only_kernel` maths per tile and per chunk
     of PLAIN_CHUNK entries (log-space transmittance via a cumsum over the
     chunk), PLAIN_TILE_BATCH tiles at a time so it fits on the card at full
     width. With `keep` ((E, 4) bool, fwd_subtile_keep), each pixel walks
     only the entries kept in its sub-tile, as the kernels do. Returns
-    (image, stop or None, (visited, weighted) or None)."""
+    (image, stop or None, (visited, weighted) or None), and with
+    with_contrib the (H, W) int32 count of the entries each pixel included
+    (w > 0, JAX's contrib_num) after them."""
     dev = feat_r.device
     nv = feat_r.shape[1] - 6
     tiles_x, tiles_y = num_tiles(width, height, TILE_PX)
@@ -284,6 +290,7 @@ def _plain_forward(skeys, starts, ends, feat_r, rank_bits: int, width: int,
     rank = skeys & ((1 << rank_bits) - 1)
     raw = torch.zeros((t_total, 1 + nv, p), dtype=torch.float32, device=dev)
     stop = torch.zeros((t_total, 1, p), dtype=torch.int64, device=dev)
+    contrib = torch.zeros((t_total, 1, p), dtype=torch.int64, device=dev)
     visited = torch.zeros((), dtype=torch.int64, device=dev)
     weighted = torch.zeros((), dtype=torch.int64, device=dev)
     lane = torch.arange(PLAIN_CHUNK, device=dev)
@@ -300,6 +307,7 @@ def _plain_forward(skeys, starts, ends, feat_r, rank_bits: int, width: int,
         acc = torch.zeros((len(tids), 1 + nv, p), dtype=torch.float32,
                           device=dev)
         last = s[:, None].expand(len(tids), p).clone()
+        n_inc = torch.zeros((len(tids), p), dtype=torch.int64, device=dev)
         for c0 in range(0, longest, PLAIN_CHUNK):
             if not bool((log_t >= LOG_T_EPS).any()):
                 break
@@ -327,6 +335,8 @@ def _plain_forward(skeys, starts, ends, feat_r, rank_bits: int, width: int,
                 # w > 0 exactly for included live entries (w >= 1e-4/255).
                 last = torch.maximum(last, torch.where(
                     w > 0, pos[:, None, :] + 1, 0).amax(dim=2))
+            if with_contrib:
+                n_inc += (w > 0).sum(dim=2)
             if with_counts:
                 # A walk visits an entry while the pixel is still open
                 # before it, i.e. up to and including the stopping entry.
@@ -336,10 +346,14 @@ def _plain_forward(skeys, starts, ends, feat_r, rank_bits: int, width: int,
             log_t = log_t_after[:, :, -1]
         raw[tids] = acc
         stop[tids, 0] = last
+        contrib[tids, 0] = n_inc
     img = _from_tiles(raw, tiles_x, tiles_y, width, height)
     stop_img = (_from_tiles(stop, tiles_x, tiles_y, width, height)[0]
                 .to(torch.int32) if with_stop else None)
     counts = (int(visited), int(weighted)) if with_counts else None
+    if with_contrib:
+        return img, stop_img, counts, _from_tiles(
+            contrib, tiles_x, tiles_y, width, height)[0].to(torch.int32)
     return img, stop_img, counts
 
 
@@ -488,37 +502,53 @@ def composite_fwd(skeys, starts, ends, feat_r, rank_bits: int, width: int,
 
 
 def composite_train_fwd_plain(skeys, starts, ends, feat_r, rank_bits: int,
-                              width: int, height: int):
+                              width: int, height: int,
+                              with_contrib: bool = False):
     """Plain PyTorch training compositor: composite_fwd_plain's image and
     the (H, W) int32 stop (one past the sorted position of the last entry
-    each pixel included; its tile's segment start if none)."""
-    img, stop, _ = _plain_forward(skeys, starts, ends, feat_r, rank_bits,
-                                  width, height, True, False)
-    return img, stop
+    each pixel included; its tile's segment start if none); with_contrib
+    also returns the (H, W) int32 count of the entries each pixel
+    included."""
+    out = _plain_forward(skeys, starts, ends, feat_r, rank_bits, width,
+                         height, True, False, with_contrib=with_contrib)
+    return (out[0], out[1], out[3]) if with_contrib else out[:2]
 
 
 def composite_train_fwd(skeys, starts, ends, feat_r, rank_bits: int,
-                        width: int, height: int):
+                        width: int, height: int, with_contrib: bool = False):
     """composite_fwd's inputs -> ((1 + nv, H, W) image, (H, W) int32 stop),
-    the backward's residual."""
+    the backward's residual; with_contrib (the lift, COUNT_NV value rows
+    on the card) also the (H, W) int32 count of each pixel's included
+    entries."""
     if feat_r.device.type == "cpu":
         return composite_train_fwd_plain(skeys, starts, ends, feat_r,
-                                         rank_bits, width, height)
+                                         rank_bits, width, height,
+                                         with_contrib)
     _cuda_only("composite_train_fwd", feat_r)
     tiles_x, tiles_y, nv = _compositor_shapes(
         "composite_train_fwd", skeys, starts, ends, feat_r, width, height)
+    if with_contrib and nv != COUNT_NV:
+        raise ValueError(f"composite_train_fwd: the per-pixel count is "
+                         f"built for {COUNT_NV} value rows, not {nv}")
     out = torch.empty((1 + nv, height, width), dtype=torch.float32,
                       device=feat_r.device)
     stop = torch.empty((height, width), dtype=torch.int32,
                        device=feat_r.device)
-    _launch("composite_train_fwd",
-            [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P],
-            (skeys.data_ptr(), starts.data_ptr(), ends.data_ptr(),
-             feat_r.data_ptr(), nv, rank_bits, tiles_x, tiles_y, width,
-             height, ALPHA_MIN, ALPHA_MAX, LOG_T_EPS, out.data_ptr(),
-             stop.data_ptr()),
-            feat_r.device, source="composite_fwd")
-    return out, stop
+    args = (skeys.data_ptr(), starts.data_ptr(), ends.data_ptr(),
+            feat_r.data_ptr(), nv, rank_bits, tiles_x, tiles_y, width,
+            height, ALPHA_MIN, ALPHA_MAX, LOG_T_EPS, out.data_ptr(),
+            stop.data_ptr())
+    types = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P]
+    if not with_contrib:
+        _launch("composite_train_fwd", types, args, feat_r.device,
+                source="composite_fwd")
+        return out, stop
+    contrib = torch.empty((height, width), dtype=torch.int32,
+                          device=feat_r.device)
+    _launch("composite_train_fwd", types + [_P], args + (contrib.data_ptr(),),
+            feat_r.device, source="composite_fwd",
+            entry="composite_train_fwd_count")
+    return out, stop, contrib
 
 
 # --- composite_bwd -----------------------------------------------------------
@@ -842,27 +872,33 @@ class _Composite(torch.autograd.Function):
     custom_vjp `comp`, pallas_raster.py:1385-1523). The residual is the
     image itself plus the per-pixel stop: only the weight-sum, depth and
     colour rows reach a loss, so the 16 packed accumulators and T_final
-    that the TPU kernel keeps are not needed."""
+    that the TPU kernel keeps are not needed. With with_contrib it also
+    returns the per-pixel count of included entries (not differentiable)."""
 
     @staticmethod
     def forward(ctx, feat_r, skeys, perm, starts, ends, seg_start, seg_end,
-                rank_bits: int, width: int, height: int):
-        img, stop = composite_train_fwd(skeys, starts, ends, feat_r,
-                                        rank_bits, width, height)
+                rank_bits: int, width: int, height: int,
+                with_contrib: bool = False):
+        img, stop, *contrib = composite_train_fwd(
+            skeys, starts, ends, feat_r, rank_bits, width, height,
+            with_contrib)
         ctx.save_for_backward(feat_r, skeys, perm, starts, ends, seg_start,
                               seg_end, img, stop)
         ctx.geometry = (rank_bits, width, height)
-        return img
+        if not with_contrib:
+            return img
+        ctx.mark_non_differentiable(contrib[0])
+        return img, contrib[0]
 
     @staticmethod
     @torch.autograd.function.once_differentiable
-    def backward(ctx, grad):
+    def backward(ctx, grad, *_):
         (feat_r, skeys, perm, starts, ends, seg_start, seg_end, img,
          stop) = ctx.saved_tensors
         rank_bits, width, height = ctx.geometry
         d_ent = composite_bwd(skeys, perm, starts, ends, feat_r, img, stop,
                               grad.contiguous(), rank_bits, width, height)
-        return (segsum(d_ent, seg_start, seg_end),) + (None,) * 9
+        return (segsum(d_ent, seg_start, seg_end),) + (None,) * 10
 
 
 def rasterize(
@@ -871,14 +907,16 @@ def rasterize(
     height: int,
     bg: Optional[torch.Tensor] = None,
     entry_budget: int = 0,
-) -> RasterOut:
+    with_contrib: bool = False,
+):
     """Differentiable rasterization (rasterize_pallas): colour, depth and
     alpha (the weight sum) are differentiable in every splat field that
     reaches the compositor (xy, conic, opacity, depth, colour) and in bg.
     The prologue, decode_cull and the key sort run without gradient, as
     JAX's stop_gradient does. Returns RasterOut with the entries_total /
     entries_alive telemetry (entries_total > entry_budget: entries were
-    cropped)."""
+    cropped); with_contrib (the lift: 8 colour channels) returns
+    (RasterOut, (H, W) int32 count of each pixel's included entries)."""
     c = splats.color.shape[1]
     if c > FEAT - 8:
         raise ValueError(f"at most {FEAT - 8} colour channels")
@@ -893,12 +931,15 @@ def rasterize(
         skeys, starts, ends, perm = sorted_stream(
             keys, plan.t_total, plan.rank_bits, with_perm=True)
     feat_r = entry_features(splats, plan.order, True, True)
-    img = _Composite.apply(feat_r, skeys, perm, starts, ends, plan.seg_start,
-                           plan.seg_end, plan.rank_bits, width, height)
+    res = _Composite.apply(feat_r, skeys, perm, starts, ends, plan.seg_start,
+                           plan.seg_end, plan.rank_bits, width, height,
+                           with_contrib)
+    img, contrib = res if with_contrib else (res, None)
     alpha = img[0]
     color = img[2:2 + c]
     if bg is not None:
         color = color + (1.0 - alpha)[None] * bg[:, None, None]
-    return RasterOut(color=color, depth=img[1], alpha=alpha,
-                     radii=splats.radius, entries_total=plan.total,
-                     entries_alive=alive)
+    out = RasterOut(color=color, depth=img[1], alpha=alpha,
+                    radii=splats.radius, entries_total=plan.total,
+                    entries_alive=alive)
+    return (out, contrib) if with_contrib else out

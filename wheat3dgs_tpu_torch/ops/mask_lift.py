@@ -22,13 +22,15 @@ channels), as the JAX package's seg/flashsplat.py::lift_batch8 does. The
 JAX `lift_mask` computes the same counts with a per-tile matmul in its XLA
 rasterizer.
 
-Not ported: LiftOut.contrib_num (contributing splats per pixel), which no
-caller reads.
+contrib_num, the count of splats with a nonzero blending weight at each
+pixel (alpha >= 1/255 before the pixel's stop), comes from the first
+pass's training compositor: the weights do not depend on the colours, so
+every pass gives the same count.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -41,6 +43,8 @@ LABELS_PER_PASS = 8
 class LiftOut(NamedTuple):
     used_count: torch.Tensor  # (num_obj + 1, N)
     alpha: torch.Tensor       # (H, W)
+    # (H, W) int32: contributing splats per pixel (None if not asked for)
+    contrib_num: Optional[torch.Tensor]
     # Per-Gaussian projected pixel centre / view depth (the reference
     # flashsplat_render's proj_xy / gs_depth outputs); invisible Gaussians
     # (radius 0) keep their projected values.
@@ -49,14 +53,16 @@ class LiftOut(NamedTuple):
 
 
 def lift_planes(splats: Splats2D, planes: torch.Tensor, width: int,
-                height: int, entry_budget: int = 0):
+                height: int, entry_budget: int = 0,
+                with_contrib: bool = False):
     """(L, H, W) float label planes -> ((L, N) counts, (H, W) alpha): one
     forward + backward pass of `rasterize` per LABELS_PER_PASS planes (the
-    last batch zero-padded)."""
+    last batch zero-padded). with_contrib adds the (H, W) int32
+    contrib_num, counted by the first pass."""
     n = splats.xy.shape[0]
     k = LABELS_PER_PASS
     geo = Splats2D(*(t.detach() for t in splats))
-    counts, alpha = [], None
+    counts, alpha, contrib = [], None, None
     for b0 in range(0, planes.shape[0], k):
         block = planes[b0:b0 + k]
         cot = torch.zeros((k, height, width), dtype=torch.float32,
@@ -65,24 +71,34 @@ def lift_planes(splats: Splats2D, planes: torch.Tensor, width: int,
         with torch.enable_grad():
             colors = torch.zeros((n, k), dtype=torch.float32,
                                  device=planes.device, requires_grad=True)
+            first = with_contrib and b0 == 0
             out = rasterize(geo._replace(color=colors), width, height,
-                            entry_budget=entry_budget)
+                            entry_budget=entry_budget, with_contrib=first)
+            if first:
+                out, contrib = out
             (g,) = torch.autograd.grad(out.color, colors, grad_outputs=cot)
         counts.append(g.T[:block.shape[0]])
         alpha = out.alpha.detach()
+    if with_contrib:
+        return torch.cat(counts, dim=0), alpha, contrib
     return torch.cat(counts, dim=0), alpha
 
 
 def lift_mask(splats: Splats2D, gt_mask: torch.Tensor, num_obj: int,
-              width: int, height: int, entry_budget: int = 0) -> LiftOut:
+              width: int, height: int, entry_budget: int = 0,
+              with_contrib: bool = True) -> LiftOut:
     """gt_mask: (H, W) int labels in [0, num_obj], 0 = background.
-    ceil((num_obj + 1) / LABELS_PER_PASS) render passes."""
+    ceil((num_obj + 1) / LABELS_PER_PASS) render passes. with_contrib=False
+    leaves contrib_num None, for callers that read only the counts: the
+    first pass then runs the compositor's build without the count."""
     labels = torch.arange(num_obj + 1, device=gt_mask.device)
     planes = (gt_mask.long()[None] == labels[:, None, None]).to(
         torch.float32)
-    used, alpha = lift_planes(splats, planes, width, height, entry_budget)
-    return LiftOut(used_count=used, alpha=alpha, proj_xy=splats.xy.detach(),
-                   gs_depth=splats.depth.detach())
+    used, alpha, *contrib = lift_planes(splats, planes, width, height,
+                                        entry_budget, with_contrib)
+    return LiftOut(used_count=used, alpha=alpha,
+                   contrib_num=contrib[0] if contrib else None,
+                   proj_xy=splats.xy.detach(), gs_depth=splats.depth.detach())
 
 
 def multi_instance_opt(all_counts: torch.Tensor,

@@ -82,7 +82,8 @@ def labels_from_seg_maps(state: GaussianState, cams, seg_maps, width: int,
         out = flashsplat.lift_view(
             state, *(c[i] for c in cams),
             torch.as_tensor(np.asarray(seg_maps[i], np.int32)),
-            num_obj=obj_num, width=width, height=height, config=config)
+            num_obj=obj_num, width=width, height=height, config=config,
+            with_contrib=False)
         all_counts = (out.used_count if all_counts is None
                       else all_counts + out.used_count)
     labels = flashsplat.multi_instance_opt(all_counts, 0.0)

@@ -44,14 +44,17 @@ def _project(state: GaussianState, w2c, full_proj, cam_center, tanfovx,
 
 def lift_view(state: GaussianState, w2c, full_proj, cam_center, tanfovx,
               tanfovy, gt_mask, *, num_obj: int, width: int, height: int,
-              config: RasterConfig = RasterConfig()) -> mask_lift.LiftOut:
+              config: RasterConfig = RasterConfig(),
+              with_contrib: bool = True) -> mask_lift.LiftOut:
     """used_count for one view and an (H, W) label image (reference
-    opt_label_w_seg inner call, run_3d_seg.py:92-97)."""
+    opt_label_w_seg inner call, run_3d_seg.py:92-97); with_contrib as in
+    mask_lift.lift_mask."""
     splats = _project(state, w2c, full_proj, cam_center, tanfovx, tanfovy,
                       width, height)
     gt = torch.as_tensor(gt_mask, device=state.device)
     return mask_lift.lift_mask(splats, gt, num_obj, width, height,
-                               entry_budget=config.entry_budget)
+                               entry_budget=config.entry_budget,
+                               with_contrib=with_contrib)
 
 
 def lift_batch8(state: GaussianState, w2c, full_proj, cam_center, tanfovx,

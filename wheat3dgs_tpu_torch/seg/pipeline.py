@@ -243,7 +243,7 @@ def lift_counts(ctx: SegContext, cam_idx: int, mask_path: str,
     out = flashsplat.lift_view(
         ctx.state, *_cam_slice(ctx.cams, cam_idx),
         torch.as_tensor(mask.astype(np.int32)), num_obj=1, width=ctx.width,
-        height=ctx.height, config=ctx.config)
+        height=ctx.height, config=ctx.config, with_contrib=False)
     counts = out.used_count.cpu().numpy()
     if pts_filter is not None:
         counts[1:, pts_filter] = 0.0

@@ -73,6 +73,13 @@ def build_covariance(scales: torch.Tensor, quats: torch.Tensor,
     return L @ L.transpose(-1, -2)
 
 
+def cov_to_sym6(cov: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) covariance -> packed upper triangle (..., 6)."""
+    return torch.stack(
+        [cov[..., 0, 0], cov[..., 0, 1], cov[..., 0, 2],
+         cov[..., 1, 1], cov[..., 1, 2], cov[..., 2, 2]], dim=-1)
+
+
 def seed_everything(seed: int = 0) -> None:
     """Seed the host RNGs and torch's default generators (reference
     safe_state seeds 0, utils/general_utils.py:130-132). The trainer's own

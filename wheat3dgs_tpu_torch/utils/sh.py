@@ -19,6 +19,10 @@ C3 = (-0.5900435899266435, 2.890611442640554, -0.4570457994644658,
       -0.5900435899266435)
 
 
+def num_sh_bands(deg: int) -> int:
+    return (deg + 1) ** 2
+
+
 def sh_basis(deg: int, dirs: torch.Tensor) -> list:
     """The K = (deg+1)^2 real-SH basis values at unit `dirs` (..., 3), as a
     list of (..., 1) tensors (band 0 first, 3DGS ordering)."""
@@ -61,3 +65,7 @@ def sh_to_rgb(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
 
 def rgb_to_sh(rgb):
     return (rgb - 0.5) / C0
+
+
+def sh_to_rgb_dc(sh):
+    return sh * C0 + 0.5
