@@ -144,7 +144,26 @@ when run outside a checkout of the repo. Phases, each reported on a line:
    kernels held as in phase 19 at the Trainer's probed budget and SH 3,
    and render_fwd at the render rate's probed budget, on two train views,
    with the budget and capacity printed;
-21. a `kernels` JSON line, then the device line last.
+7b (after 8b). the densification decision, kernels against plain: from
+   the bench plot's points3D at 1/4 of its size, DECISION_STEPS steps on
+   fixed view picks from iteration DECISION_FROM, ending at the densify of
+   iteration 3100 (past the opacity reset, so the world-size prune is
+   live), once replayed with the kernels and once eagerly all-plain from
+   the same state: the splats whose prune / clone / split decision
+   differs held under DECISION_DIFF_MAX of the alive ones, the statistic
+   grad_accum / denom compared among splats within 2x of the threshold
+   (largest and mean signed relative error, hot-only counts each way) and
+   the n_alive after the densify printed;
+21. distributed: DIST_RANKS processes on this card, each a gloo rank with
+   CUDA tensors (its collectives staged through the host), run the
+   multi-plot step of `parallel.mesh` over each mesh of DIST_MESHES (1
+   plot x 2 views: the gradient all-reduce; tests/test_torch_dist.py
+   holds the plot and gauss axes on the CPU) for DIST_STEPS steps from
+   the bench plot's points3D at full size, each rank holding its share to
+   the one-process multi_plot_step (the loss and the means within JAX's
+   tests/test_parallel.py tolerances, the Adam moments and grad_accum
+   within DIST_MOMENT_REL of their max), with its launches counted;
+22. a `kernels` JSON line, then the device line last.
 Work files go to `_smoke_work/` in the checkout and are removed on success.
 """
 
@@ -158,6 +177,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 WORK = os.path.join(ROOT, "_smoke_work")
 
 # composite_fwd against its plain version: the kernel sums each pixel's
@@ -194,6 +214,17 @@ SEG_MEDIAN_PURITY = 0.5
 # the first iteration by this many dB (the first run on an H100 rose
 # 7.35 dB, 17.32 -> 24.67).
 PSNR_RISE_DB = 3.0
+# Phase 7b: the densification decision at 1/4 of the bench's size, over
+# the 100 steps that end at the densify of iteration 3100 (past the
+# opacity reset at 3000); at most this share of the alive splats may be
+# decided differently on the kernel path than on the plain one. The
+# kernels gave 1 of 100,000 on exp_bench2's plot (H100, 700 W); ~3,600
+# splats lie within 2x of the threshold, so a 1% bias in the statistic
+# would flip ~25.
+DECISION_RESOLUTION = 4
+DECISION_FROM = 3001
+DECISION_STEPS = 100
+DECISION_DIFF_MAX = 1e-4
 
 BENCH = dict(width=1600, height=1200, n_cams=12, n_heads=32,
              pts_per_head=3000, ground_pts=104_000, seed=0)
@@ -205,10 +236,6 @@ TRAIN_ITERS = 300
 TRAIN_BLOCK = 39
 BLOCK_CHECK = 8
 DEVICE = "cuda"
-# The rasterizer's five kernels (plain_kernels() routes them all to their
-# plain versions).
-ALL_KERNELS = ("decode_cull", "composite_fwd", "composite_train_fwd",
-               "composite_bwd", "segsum")
 # Phases 12-15 (run_wheat_3dgs.sh's step 2 and 4 arguments, the viewer's
 # CLI default size).
 FIELD_360 = dict(n_frames=200, framerate=20, elevation=45)
@@ -241,6 +268,9 @@ MORPHOLOGY = {"file_format": "ply", "subsampling_threshold": 5000,
 # other seven steps cost about the same at any count), and a limit on each
 # script's run.
 PIPELINE_ITERS = 300
+# The pipeline's 360 videos at a tenth of the script's frames (phases
+# 13-14 render the full orbits in process).
+PIPELINE_FRAMES = {"FIELD_FRAMES": "20", "HEAD_FRAMES": "10"}
 SCRIPT_TIMEOUT = 600
 # Phase 19: two bench plots trained together, B views a step, on bench.py's
 # schedule (densify from 20 every 40, no opacity reset); the second plot
@@ -260,6 +290,20 @@ MULTI_PSNR_RISE_DB = 1.0
 # Phase 20: apps/bench's default iterations and the keys of its line
 # (bench.py's).
 BENCH_ITERS = 600
+# Phase 21: the multi-plot step over DIST_RANKS gloo ranks on the one card
+# (CUDA tensors, collectives staged through the host), DIST_STEPS steps on
+# each mesh of DIST_MESHES (plots x views: one plot over two view ranks,
+# whose gradients are all-reduced; tests/test_torch_dist.py holds the
+# plot axis on the CPU), against the one-process step; JAX's
+# tests/test_parallel.py tolerances for the loss and the means, each Adam
+# moment and grad_accum within DIST_MOMENT_REL of its max |value|.
+DIST_RANKS = 2
+DIST_MESHES = ((1, 2),)
+DIST_STEPS = 3
+DIST_LOSS_RTOL = 1e-5
+DIST_ATOL = 1e-5
+DIST_MOMENT_REL = 1e-4
+DIST_JOIN_TIMEOUT = 400.0
 BENCH_KEYS = ["metric", "value", "unit", "vs_baseline", "mean_ms",
               "median_ms", "n_splats", "render_fps"]
 # cuda_time_ms, bound, fwd_bound and smi_line are bound in main(), from the
@@ -272,6 +316,8 @@ def fail(msg: str) -> None:
 
 
 def say(phase: str, **kv) -> None:
+    """A phase's JSON line, with the seconds since main() started."""
+    kv["at_seconds"] = time.perf_counter() - T_START
     print(phase + ": " + json.dumps(kv), flush=True)
 
 
@@ -480,22 +526,6 @@ def timed_once(fn):
     return out, start.elapsed_time(stop)
 
 
-@contextlib.contextmanager
-def plain_kernels():
-    """Route the rasterizer's kernel calls to their plain versions on the
-    card's tensors for the duration (the all-plain reference path)."""
-    from wheat3dgs_tpu_torch.ops import cuda_raster as CR
-
-    saved = {k: getattr(CR, k) for k in ALL_KERNELS}
-    try:
-        for k in ALL_KERNELS:
-            setattr(CR, k, getattr(CR, k + "_plain"))
-        yield
-    finally:
-        for k, fn in saved.items():
-            setattr(CR, k, fn)
-
-
 def check_repeatable(name: str, kernel, args):
     """kernel(*args) twice: the outputs (a tensor or a tuple of them) must
     be bit-identical (the kernel sums in a fixed order and uses no atomics
@@ -697,7 +727,7 @@ def check_train_kernels(scene):
 
     names = list(st.params.as_dict())
     got = leaf_grads()
-    with plain_kernels():
+    with CR.plain_kernels():
         ref = leaf_grads()
     grad_rel = {}
     for k, a, b in zip(names, got, ref):
@@ -707,6 +737,115 @@ def check_train_kernels(scene):
             fail(f"end-to-end gradient of {k}: {grad_rel[k]} of its max "
                  f"(bound {GRAD_REL})")
     return fwd, bwd, seg, {"budget": budget, "grad_rel_of_max": grad_rel}
+
+
+def densify_decision(scene_dir: str) -> dict:
+    """Phase 7b: the densification decision, kernels against plain. From
+    the bench plot's points3D at 1/DECISION_RESOLUTION of its size, two
+    Trainers take the same DECISION_STEPS steps on the same view picks
+    (random.Random(0), as the CLI draws them) from copies of one state,
+    iterations DECISION_FROM on, so the block ends at a densify past the
+    opacity reset and the world-size prune is live: one replays the
+    kernels from a CUDA graph (step_block, the CLI's path), one runs the
+    plain versions eagerly. Per splat: the statistic grad_accum / denom
+    and densify_and_prune's prune / clone / split decisions. The count of
+    splats whose decision differs is held under DECISION_DIFF_MAX of the
+    alive ones; the statistic's largest and mean signed relative error
+    among splats within 2x of the threshold, each direction's hot-only
+    count and the n_alive after the densify are printed (GRAD_REL,
+    relative to a tensor's max, cannot see an error in the small per-splat
+    norms that decide)."""
+    import random
+
+    import torch
+
+    from wheat3dgs_tpu_torch import config as cfg
+    from wheat3dgs_tpu_torch.models import gaussians as G
+    from wheat3dgs_tpu_torch.ops import cuda_raster as CR
+    from wheat3dgs_tpu_torch.scene import Scene
+    from wheat3dgs_tpu_torch.training import Trainer
+    from wheat3dgs_tpu_torch.training_graph import eager_steps
+
+    scene = Scene(cfg.ModelParams(source_path=scene_dir,
+                                  resolution=DECISION_RESOLUTION),
+                  device=DEVICE)
+    opt = cfg.OptimizationParams()
+    w, h = scene.image_size
+    gts = torch.as_tensor(scene.data.train.images, device=DEVICE)
+    cams = scene.cam_stack("train")
+    rnd = random.Random(0)
+    picks = [rnd.randint(0, gts.shape[0] - 1) for _ in range(DECISION_STEPS)]
+    it_last = DECISION_FROM + DECISION_STEPS - 1
+    if it_last % opt.densification_interval or (
+            it_last <= opt.opacity_reset_interval):
+        fail(f"decision block ends at {it_last}, not at a densify past the "
+             "opacity reset")
+    dkw = dict(grad_threshold=opt.densify_grad_threshold, min_opacity=0.005,
+               extent=scene.cameras_extent, max_screen_size=20.0,
+               percent_dense=opt.percent_dense)
+
+    def run(plain: bool) -> dict:
+        tr = Trainer(G.map_tensors(torch.clone, scene.gaussians), opt,
+                     scene.cameras_extent, sh_degree=3)
+        tr.active_sh_degree = 3
+        tr.maybe_densify = lambda it: None     # densify below, by hand
+        with (CR.plain_kernels() if plain else contextlib.nullcontext()), (
+                eager_steps() if plain else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            m = tr.step_block(DECISION_FROM, picks, cams, gts, w, h,
+                              n_steps=DECISION_STEPS)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        masks = G.densify_masks(tr.state, **dkw)
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(0)
+        _, info = G.densify_and_prune(tr.state, generator=gen, **dkw)
+        return dict(masks=masks, alive=tr.state.alive,
+                    n_alive_after=int(info["n_alive"]), seconds=seconds,
+                    entry_budget=tr.config.entry_budget,
+                    entries_total=int(m["entries_total"]),
+                    loss=float(m["loss"]))
+
+    k, p = run(False), run(True)
+    mk, mp = k["masks"], p["masks"]
+    alive = k["alive"]
+    if not torch.equal(alive, p["alive"]):
+        fail("decision phase: the two runs' alive masks differ")
+    if not bool(torch.isfinite(mk["stat"]).all()):
+        fail("decision phase: non-finite densification statistic")
+
+    def decision(m):
+        return (m["prune"].long() + 2 * m["clone"].long()
+                + 3 * m["split"].long())
+
+    n_alive = int(alive.sum())
+    differ = int(((decision(mk) != decision(mp)) & alive).sum())
+    thr = opt.densify_grad_threshold
+    near = alive & (mp["stat"] >= thr / 2) & (mp["stat"] <= 2 * thr)
+    rel = (mk["stat"] - mp["stat"])[near] / mp["stat"][near]
+    out = dict(resolution=[w, h], steps=DECISION_STEPS,
+               iterations=[DECISION_FROM, it_last], alive=n_alive,
+               decisions_differ=differ,
+               gate=int(DECISION_DIFF_MAX * n_alive),
+               near_threshold=int(near.sum()),
+               stat_max_rel_err_near=float(rel.abs().max()) if len(rel)
+               else 0.0,
+               stat_mean_signed_rel_err_near=float(rel.mean()) if len(rel)
+               else 0.0,
+               hot_kernel_only=int((mk["hot"] & ~mp["hot"]).sum()),
+               hot_plain_only=int((mp["hot"] & ~mk["hot"]).sum()),
+               counts={name: [int(mk[name].sum()), int(mp[name].sum())]
+                       for name in ("prune_opacity", "prune", "hot",
+                                    "clone", "split")},
+               n_alive_after=[k["n_alive_after"], p["n_alive_after"]],
+               entry_budget=[k["entry_budget"], p["entry_budget"]],
+               entries_total=[k["entries_total"], p["entries_total"]],
+               loss=[k["loss"], p["loss"]],
+               seconds=[k["seconds"], p["seconds"]])
+    if differ > DECISION_DIFF_MAX * n_alive:
+        fail(f"decision phase: {differ} of {n_alive} splats decided "
+             f"differently on the kernel path (gate {out['gate']}): {out}")
+    return out
 
 
 def train_path(scene_dir: str, out_dir: str):
@@ -1097,7 +1236,7 @@ def check_seg_kernels(scene, scene_dir: str):
     lift_args = (st, *cam, bits8)
     lift_kw = dict(width=w, height=h, config=config)
     got = flashsplat.lift_batch8(*lift_args, **lift_kw)
-    with plain_kernels():
+    with CR.plain_kernels():
         ref = flashsplat.lift_batch8(*lift_args, **lift_kw)
     row_max = ref.abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
     lift_rel = float(((got - ref).abs() / row_max).max())
@@ -1117,7 +1256,7 @@ def check_seg_kernels(scene, scene_dir: str):
     view_args = (st, *cam, labels)
     view_kw = dict(num_obj=7, width=w, height=h, config=config)
     out = flashsplat.lift_view(*view_args, **view_kw)
-    with plain_kernels():
+    with CR.plain_kernels():
         ref = flashsplat.lift_view(*view_args, **view_kw)
     row_max = ref.used_count.abs().amax(dim=1, keepdim=True).clamp(
         min=1e-30)
@@ -1448,10 +1587,11 @@ def check_frame(where: str, parts, got) -> dict:
     float image within the colour tolerance."""
     import numpy as np
 
+    from wheat3dgs_tpu_torch.ops import cuda_raster as CR
     from wheat3dgs_tpu_torch.utils import image_ops
 
     colour, ids = parts()
-    with plain_kernels():
+    with CR.plain_kernels():
         ref, ref_ids = parts()
     err = np.abs(colour - ref)
     if not (err <= COMPOSITE_ATOL + COMPOSITE_RTOL * np.abs(ref)).all():
@@ -1691,7 +1831,7 @@ def field_path(model_dir: str) -> dict:
         launches = dict(CR.launches)
     finally:
         restore()
-    for k in ALL_KERNELS:
+    for k in CR.KERNELS:
         if launches[k] <= 0:
             fail(f"kernel {k} was not launched on the 360 field path")
     base = os.path.join(model_dir, "wheat-head", "smoke")
@@ -1982,6 +2122,8 @@ def run_script(script: str, args: list, env: dict, log_name: str) -> dict:
     exit code and seconds. Its output goes to WORK/<log_name>."""
     import subprocess
 
+    from wheat3dgs_tpu_torch.ops import cuda_raster as CR
+
     bindir = step_runner()
     step_log = os.path.join(WORK, log_name + ".steps")
     if os.path.exists(step_log):
@@ -2005,7 +2147,7 @@ def run_script(script: str, args: list, env: dict, log_name: str) -> dict:
         fail(f"{script} exited {proc.returncode} after {len(steps)} steps "
              f"({[st['argv'][:2] for st in steps]}):\n{tail}")
     launches = {k: sum(st["launches"].get(k, 0) for st in steps)
-                for k in ALL_KERNELS + ("scan_probe",)}
+                for k in CR.KERNELS + ("scan_probe",)}
     return dict(seconds=seconds, launches=launches,
                 steps=[{"step": " ".join(st["argv"][:2]),
                         "seconds": st["seconds"],
@@ -2092,6 +2234,7 @@ def check_bench_kernels(scene_dir: str) -> dict:
     import torch
 
     from wheat3dgs_tpu_torch.apps import bench
+    from wheat3dgs_tpu_torch.ops import cuda_raster as CR
     from wheat3dgs_tpu_torch.render.pipeline import render_fwd
 
     dev = torch.device(DEVICE)
@@ -2114,7 +2257,7 @@ def check_bench_kernels(scene_dir: str) -> dict:
                     int(out.entries_total))
 
         img, demand = once()
-        with plain_kernels():
+        with CR.plain_kernels():
             ref, _ = once()
         where = f"bench render_fwd, train view {i}"
         if demand > config.entry_budget:
@@ -2136,19 +2279,23 @@ def check_bench_kernels(scene_dir: str) -> dict:
 
 def pipeline_path(scene_dir: str) -> dict:
     """Phase 17: wheat3dgs_tpu_torch/scripts/run_wheat_3dgs.sh on the bench
-    scene into a fresh model dir (DEVICE=cuda, ITERS=PIPELINE_ITERS), every
+    scene into a fresh model dir (DEVICE=cuda, ITERS=PIPELINE_ITERS, the
+    360 videos at PIPELINE_FRAMES), every
     step through the port's apps, then scripts/eval.sh on that model; the
     output tree and each step's seconds and launches."""
+    from wheat3dgs_tpu_torch.ops import cuda_raster as CR
+
     python = {"python": shutil.which("python"),
               "python3": shutil.which("python3")}
     model = os.path.join(WORK, "pipeline_model")
-    env = {"DEVICE": DEVICE, "ITERS": str(PIPELINE_ITERS)}
+    env = {"DEVICE": DEVICE, "ITERS": str(PIPELINE_ITERS),
+           **PIPELINE_FRAMES}
     run = run_script("run_wheat_3dgs.sh", [scene_dir, model, "smoke", "0.6"],
                      env, "pipeline.log")
     if len(run["steps"]) != 8:
         fail(f"run_wheat_3dgs.sh ran {len(run['steps'])} python steps, "
              "expected 8")
-    for k in ALL_KERNELS:
+    for k in CR.KERNELS:
         if run["launches"][k] <= 0:
             fail(f"kernel {k} was not launched on the pipeline")
     base = os.path.join(model, "wheat-head", "smoke")
@@ -2203,6 +2350,7 @@ def hold_step(st, cam, gt, sh_degree: int, opt, config, where: str) -> dict:
     import torch
 
     from wheat3dgs_tpu_torch.models import gaussians as G
+    from wheat3dgs_tpu_torch.ops import cuda_raster as CR
     from wheat3dgs_tpu_torch.ops.cuda_raster import default_budget
     from wheat3dgs_tpu_torch.ops.losses import photometric_loss
     from wheat3dgs_tpu_torch.render.pipeline import render
@@ -2225,7 +2373,7 @@ def hold_step(st, cam, gt, sh_degree: int, opt, config, where: str) -> dict:
                 dict(zip(list(leaves) + ["viewspace"], grads)))
 
     color, loss, entries, got = step_grads()
-    with plain_kernels():
+    with CR.plain_kernels():
         ref_color, ref_loss, _, ref = step_grads()
     budget = config.entry_budget or default_budget(st.capacity)
     if entries > budget:
@@ -2532,6 +2680,212 @@ def multi_plot_path(scene_dir: str) -> dict:
         rates=rates, rate_fit=fit, busy=busy)
 
 
+def dist_rank(rank: int, world: int, init: str, out_dir: str,
+              scene_dir: str, device: str) -> None:
+    """Phase 21, one spawned rank: init_ranks over gloo on `device` (the
+    parent's DEVICE), then dist_meshes; the result or the traceback into
+    out_dir/rank<r>.json."""
+    import traceback
+
+    import torch
+
+    global DEVICE
+    DEVICE = device
+    sys.path.insert(0, ROOT)
+    from wheat3dgs_tpu_torch.parallel import mesh as TM
+
+    try:
+        ranks = TM.init_ranks("gloo", init, world, rank, device=DEVICE)
+        res = {"ok": True, **dist_meshes(ranks, scene_dir)}
+    except (Exception, SystemExit):       # fail() exits
+        res = {"ok": False, "error": traceback.format_exc()}
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def dist_meshes(ranks, scene_dir: str) -> dict:
+    """For each (plots, views) mesh of DIST_MESHES over the ranks: the
+    bench plot from its points3D as every plot (plot p on train views
+    p * views .. p * views + views - 1), SH 3, the app's automatic budget;
+    DIST_STEPS steps of the mesh's multi-plot step on this rank's share
+    (the launch counters reset just before and read just after), then the
+    one-process multi_plot_step (replayed from a CUDA graph) on the whole,
+    and this rank's plots held to it: loss, L1 and PSNR within
+    DIST_LOSS_RTOL, the means within DIST_ATOL, grad_accum and every
+    parameter's Adam moments within DIST_MOMENT_REL of their max |value|
+    (the rotations' of the largest), alive, denom and radii exactly, each
+    step's n_alive and entries_total equal."""
+    import torch
+
+    from wheat3dgs_tpu_torch import config as cfg
+    from wheat3dgs_tpu_torch import training as TT
+    from wheat3dgs_tpu_torch.models import gaussians as G
+    from wheat3dgs_tpu_torch.ops import cuda_raster as CR
+    from wheat3dgs_tpu_torch.parallel import mesh as TM
+    from wheat3dgs_tpu_torch.scene import Scene
+
+    scene = Scene(cfg.ModelParams(source_path=scene_dir), device=DEVICE)
+    opt = cfg.OptimizationParams()
+    w, h = scene.image_size
+    gts_all = torch.as_tensor(scene.data.train.images, device=DEVICE)
+    cams_all = scene.cam_stack("train")
+    bg = torch.zeros(3, device=DEVICE)
+    # (A CPU rehearsal spawns its ranks with DEVICE "cpu".)
+    sync = (torch.cuda.synchronize if torch.device(DEVICE).type == "cuda"
+            else (lambda: None))
+    out = {"device": str(ranks.device), "staged": ranks.staged,
+           "backend": ranks.backend, "meshes": []}
+    for n_plots, n_views in DIST_MESHES:
+        idx = torch.arange(n_plots * n_views, device=DEVICE).reshape(
+            n_plots, n_views)
+        cams = tuple(a[idx] for a in cams_all)
+        gts = gts_all[idx]
+        states = TM.stack_states([G.map_tensors(torch.clone,
+                                                scene.gaussians)
+                                  for _ in range(n_plots)])
+        extents = [scene.cameras_extent] * n_plots
+        mesh = TM.make_mesh(n_plots, n_views, ranks=ranks)
+        step = TM.build_multi_plot_trainer(mesh, 3, w, h, opt)
+        mine = TM.shard_states(mesh, G.map_tensors(torch.clone, states))
+        my_cams, my_gts = TM.shard_views(mesh, (cams, gts))
+        rows = [TT.plot_scalars(it, it, opt, extents).to(DEVICE)
+                for it in range(1, DIST_STEPS + 1)]
+        ms = []
+        CR.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        for it, row in enumerate(rows, 1):
+            mine, m = step(mine, my_cams, my_gts, bg,
+                           TM.shard_plot(mesh, row))
+            mine.adam.step += 1
+            ms.append(m)
+        sync()
+        seconds = time.perf_counter() - t0
+        launches = {k: CR.launches[k] for k in CR.KERNELS}
+        ref_step = TT.multi_plot_step(3, w, h, opt)
+        ref = G.map_tensors(torch.clone, states)
+        refs = []
+        for row in rows:
+            ref, m = ref_step(ref, cams, gts, bg, row)
+            ref.adam.step += 1
+            refs.append(m)
+        p = mesh.index("plot")
+        where = f"distributed {n_plots}x{n_views}, rank {ranks.rank}"
+        loss_rel = 0.0
+        for m, r in zip(ms, refs):
+            for k in ("loss", "l1", "psnr"):
+                got, want = float(m[k][0]), float(r[k][p])
+                rel = abs(got - want) / abs(want)
+                loss_rel = max(loss_rel, rel)
+                if rel > DIST_LOSS_RTOL:
+                    fail(f"{where}: {k} {got} against {want}")
+            for k in ("n_alive", "entries_total"):
+                if int(m[k][0]) != int(r[k][p]):
+                    fail(f"{where}: {k} {int(m[k][0])} against "
+                         f"{int(r[k][p])}")
+        mine_ref = TM.shard_states(mesh, ref)
+        # JAX's test holds the loss and the means. The other parameters
+        # are held through their Adam moments and grad_accum relative to
+        # each one's max |value|: Adam gives a near-zero gradient's float
+        # noise (the views' sum taken in another order) a full step of
+        # either sign. The rotations of points3D's isotropic splats have a
+        # true gradient of 0, so theirs are held relative to the largest
+        # moment of any leaf.
+        errs = {"means": float((mine.params.means
+                                - mine_ref.params.means).abs().max())}
+        if errs["means"] > DIST_ATOL:
+            fail(f"{where}: means off by {errs['means']}")
+        scales = {}
+        for moment in ("mu", "nu"):
+            got = getattr(mine.adam, moment)
+            want = getattr(mine_ref.adam, moment)
+            top = max(float(want[k].abs().max()) for k in G.PARAM_FIELDS)
+            for k in G.PARAM_FIELDS:
+                name = f"{moment} {k}"
+                scales[name] = float(want[k].abs().max())
+                errs[name] = float((got[k] - want[k]).abs().max())
+                scale = top if k == "quats" else scales[name]
+                if not errs[name] <= DIST_MOMENT_REL * scale:
+                    fail(f"{where}: {name} off by {errs[name]} (max "
+                         f"|value| {scales[name]}, bound "
+                         f"{DIST_MOMENT_REL} x {scale})")
+        scales["grad_accum"] = float(mine_ref.grad_accum.abs().max())
+        errs["grad_accum"] = float((mine.grad_accum
+                                    - mine_ref.grad_accum).abs().max())
+        if not errs["grad_accum"] <= DIST_MOMENT_REL * scales["grad_accum"]:
+            fail(f"{where}: grad_accum off by {errs['grad_accum']} (max "
+                 f"{scales['grad_accum']})")
+        for name in ("alive", "denom", "max_radii2d"):
+            if not torch.equal(getattr(mine, name), getattr(mine_ref, name)):
+                fail(f"{where}: {name} differs")
+        renders = DIST_STEPS * int(my_gts.shape[0]) * int(my_gts.shape[1])
+        for k in ("decode_cull", "composite_train_fwd", "composite_bwd",
+                  "segsum"):
+            # (The plain versions of a CPU rehearsal count nothing.)
+            if launches[k] != renders and (
+                    torch.device(DEVICE).type == "cuda"):
+                fail(f"{where}: {k} launched {launches[k]} times in "
+                     f"{renders} renders")
+        out["meshes"].append(dict(
+            mesh=[n_plots, n_views], coords=list(mesh.coords),
+            plots_here=int(my_gts.shape[0]), views_here=int(my_gts.shape[1]),
+            loss=[float(m["loss"][0]) for m in ms], loss_max_rel=loss_rel,
+            max_abs_err=errs, max_abs=scales, seconds_per_step=seconds / DIST_STEPS,
+            launches=launches, size=[w, h], alive=int(m["n_alive"][0])))
+    return out
+
+
+def dist_path(scene_dir: str) -> dict:
+    """Phase 21: DIST_RANKS processes spawned on this card, each a gloo
+    rank with CUDA tensors (dist_rank), every rank joined with its own
+    timeout; their launches summed per kernel (each rank reset its
+    counters just before its distributed steps)."""
+    import torch.multiprocessing as mp
+
+    from wheat3dgs_tpu_torch.ops import cuda_raster as CR
+
+    out_dir = os.path.join(WORK, "dist")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    init = "file://" + os.path.join(out_dir, "init")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=dist_rank, args=(r, DIST_RANKS, init,
+                                                 out_dir, scene_dir, DEVICE))
+             for r in range(DIST_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    hung = []
+    for r, p in enumerate(procs):
+        p.join(DIST_JOIN_TIMEOUT)
+        if p.is_alive():
+            hung.append(r)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    if hung:
+        fail(f"distributed phase: ranks {hung} did not finish")
+    ranks = []
+    for r in range(DIST_RANKS):
+        path = os.path.join(out_dir, f"rank{r}.json")
+        if not os.path.exists(path):
+            fail(f"distributed phase: rank {r} exited "
+                 f"{procs[r].exitcode} without a result")
+        with open(path) as f:
+            res = json.load(f)
+        if not res["ok"]:
+            fail(f"distributed phase: rank {r}:\n{res['error']}")
+        ranks.append(res)
+    launches = {k: sum(m["launches"][k] for res in ranks
+                       for m in res["meshes"]) for k in CR.KERNELS}
+    return dict(seconds=time.perf_counter() - t0, ranks=ranks,
+                launches=launches)
+
+
 def check_probe() -> dict:
     """Phase 16: the scan probe's kinds against the plain version, at the
     cluster's edges, repeated and at 0 steps; timed at 256 and 64 steps
@@ -2642,7 +2996,7 @@ def main() -> None:
     sys.path.insert(0, ROOT)
     # The card timer and the roofline bounds (H100 SXM peaks) are the
     # port's, shared with its profiling apps.
-    global bound, cuda_time_ms, fwd_bound, smi_line
+    global bound, cuda_time_ms, fwd_bound, smi_line, T_START
     try:
         import wheat3dgs_tpu_torch  # noqa: F401
         from wheat3dgs_tpu_torch.ops import cuda_build
@@ -2652,7 +3006,7 @@ def main() -> None:
                                                             smi_line)
     except ImportError as exc:
         fail(f"the port is not importable next to this script ({exc})")
-    t_start = time.perf_counter()
+    T_START = t_start = time.perf_counter()
 
     # 1. device
     smi = smi_line()
@@ -2728,6 +3082,20 @@ def main() -> None:
     # 8b. a replayed block against the same steps run eagerly
     say("block_vs_eager", **block_against_eager(trainer, tscene))
     del trainer, tscene
+
+    # 7b. the densification decision, kernels against plain
+    dd = densify_decision(scene_dir)
+    say("densify_decision", **dd)
+    print(f"densify decision at {dd['resolution'][0]}x"
+          f"{dd['resolution'][1]}, iterations {dd['iterations'][0]}-"
+          f"{dd['iterations'][1]}: {dd['decisions_differ']} of "
+          f"{dd['alive']} splats decided differently (gate {dd['gate']}); "
+          f"statistic within 2x of the threshold ({dd['near_threshold']} "
+          f"splats): max rel err {dd['stat_max_rel_err_near']:.3e}, mean "
+          f"signed {dd['stat_mean_signed_rel_err_near']:.3e}; hot on the "
+          f"kernel path only {dd['hot_kernel_only']}, plain only "
+          f"{dd['hot_plain_only']}; n_alive after {dd['n_alive_after']} "
+          f"(kernels, plain); {smi}", flush=True)
 
     # 9. segmentation kernels against their plain versions
     scene = Scene(cfg.ModelParams(source_path=scene_dir, model_path=model_dir),
@@ -2845,6 +3213,21 @@ def main() -> None:
         f"({r['entries']} entries): {r['pixels_off']} pixels off, max abs "
         f"err {r['max_abs_err']:.2e}" for r in bk["render"]), flush=True)
 
+    # 21. the multi-plot step over gloo ranks on this card
+    dp = dist_path(scene_dir)
+    say("dist_path", **dp)
+    print("distributed: " + ", ".join(
+        f"rank {res['meshes'][0]['coords']} " + "; ".join(
+            f"{m['mesh'][0]}x{m['mesh'][1]} mesh {m['seconds_per_step']:.3f}"
+            f" s a step, loss rel err {m['loss_max_rel']:.2e}, means "
+            f"{m['max_abs_err']['means']:.2e}, " + ", ".join(
+                f"{k} {m['max_abs_err'][k]:.2e} of {m['max_abs'][k]:.2e}"
+                for k in m["max_abs"] if k.startswith("mu ")
+                or k == "grad_accum") for m in res["meshes"])
+        for res in dp["ranks"]) + f" (gloo, CUDA tensors staged through "
+        f"the host: {dp['ranks'][0]['staged']}); {dp['seconds']:.1f} s; "
+        f"{smi}", flush=True)
+
     src = "wheat3dgs_tpu_torch/csrc/"
     tpu = "wheat3dgs_tpu/ops/pallas_raster.py:"
     keys = ("value_rows", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2876,7 +3259,8 @@ def main() -> None:
                          "pipeline_script": pp["launches"][name],
                          "eval_script": pp["eval_script"]["launches"][name],
                          "multi_plot": mpp["launches"][name],
-                         "bench": bp["launches"].get(name, 0)},
+                         "bench": bp["launches"].get(name, 0),
+                         "distributed": dp["launches"][name]},
                      "segmentation_shapes": [
                          {k: x.get(k) for k in keys} for x in shapes]})
     # The probe's row: the cumsum kind (torch.cumsum computes the same

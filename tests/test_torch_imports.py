@@ -3,7 +3,8 @@
 - An AST scan: no module of wheat3dgs_tpu_torch/, and not chip_smoke.py,
   imports jax or the JAX package (a sys.modules check cannot show this:
   the interpreter here may preload jax), nor sklearn, pandas, pydantic or
-  yaml, which the port does not depend on.
+  yaml, which the port does not depend on. A line scan of the package's
+  shell scripts: none runs or names a module of jax or the JAX package.
 - Entry points asked for the default device raise when no card is present
   (the multi-plot trainer among them).
 - chip_smoke.py exits non-zero and prints no result without a card, and
@@ -55,6 +56,23 @@ def test_port_imports_no_jax():
                 continue
             bad += [f"{os.path.relpath(path, ROOT)}:{node.lineno} {n}"
                     for n in names if _forbidden(n)]
+    assert not bad, bad
+
+
+def test_port_shell_scripts_run_no_jax():
+    """Every line but comments of the package's shell scripts (their
+    embedded Python included): no `jax` word, no JAX_PLATFORMS and no
+    module path into wheat3dgs_tpu."""
+    import re
+
+    scripts = [os.path.join(d, f) for d, _, files in os.walk(PORT)
+               for f in sorted(files) if f.endswith(".sh")]
+    assert len(scripts) >= 3
+    word = re.compile(r"\bjax(lib)?\b|JAX_PLATFORMS|\bwheat3dgs_tpu\.")
+    bad = [f"{os.path.relpath(path, ROOT)}:{n} {ln.strip()}"
+           for path in scripts
+           for n, ln in enumerate(open(path).read().splitlines(), 1)
+           if not ln.lstrip().startswith("#") and word.search(ln)]
     assert not bad, bad
 
 

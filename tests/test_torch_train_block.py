@@ -13,8 +13,10 @@ JAX package, on the CPU, where step_block runs its step K times eagerly.
   visibility counts exactly.
 - Both CLIs' training() with Trainer.step / step_block replaced by stubs
   that record (iteration, K, views): the same sequence for the default
-  flags, test/save/checkpoint iterations inside a block, a run across an
-  SH multiple and a random background (all K = 1). With --debug_from D
+  flags, test/save/checkpoint iterations inside a block and a random
+  background (all K = 1); across an SH multiple the same steps and views,
+  with the port's blocks ending at the densify and log iteration 1100,
+  which JAX's miss (they end at 1049 and 1099). With --debug_from D
   the sequences agree up to D and the per-step views over the whole run;
   from D + 1 on the port runs single steps (anomaly detection cannot run
   inside a captured step; JAX's jax_debug_nans runs inside its scan).
@@ -243,7 +245,21 @@ def test_cli_block_schedule_matches_jax(case, tiny_scene, tmp_path,
                                     random_background=True)}[case]
     jax_calls, port_calls = _schedules(monkeypatch, tmp_path, tiny_scene,
                                        **kw)
-    assert port_calls == jax_calls
+    if case == "sh_multiple":
+        # The same steps and views, but JAX's blocks from the SH step at
+        # 1000 end at 1049 and 1099, one short of the densify and log at
+        # 1100, which no block ends at; the port runs 1000 alone and ends
+        # a block at 1100.
+        assert _per_step(port_calls) == _per_step(jax_calls)
+        j_ends = [it + k - 1 for it, k, _ in jax_calls]
+        p_ends = [it + k - 1 for it, k, _ in port_calls]
+        assert 1049 in j_ends and 1099 in j_ends
+        assert (1000, 1) in [c[:2] for c in port_calls]
+        assert 1050 in p_ends and 1100 in p_ends and 1099 not in p_ends
+        assert [c for c in port_calls if c[0] < 1000] == [
+            c for c in jax_calls if c[0] < 1000]
+    else:
+        assert port_calls == jax_calls
     its = [it for it, _, _ in port_calls]
     assert _per_step(port_calls)[-1][0] == kw["iterations"]
     if case == "random_background":

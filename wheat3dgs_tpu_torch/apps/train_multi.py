@@ -28,6 +28,19 @@ drops a request or exceeds 0.9 of it, and the opacity reset every
 `--max_per_tile` is a knob of JAX's XLA backend, accepted and unused. The
 mesh is factored over this process's one device as JAX factors it over
 its devices, which gives 1 x 1 (parallel/mesh.py).
+
+Over several processes, each is one rank of a torch.distributed group
+given in full: `--dist_backend gloo|nccl --dist_init <address>
+--world_size N --rank r` (nothing is read from the environment). The
+(plot, view) mesh is factored over the N ranks by JAX's rule and must use
+all of them; a rank trains its plot group's plots on its share of each
+step's views (parallel.mesh.build_multi_plot_trainer: the gradients
+all-reduced over the view group before Adam). Every rank draws every
+plot's view picks and split noise, so its plots see what they would in
+one process; the capacity doubling is decided over all plots (a MAX over
+the ranks). Rank 0 writes metrics_multi.jsonl (every plot's numbers,
+gathered), and the first rank of each view group writes its plots'
+cfg_args and PLYs.
 """
 
 from __future__ import annotations
@@ -38,6 +51,7 @@ import os
 import sys
 import time
 from argparse import ArgumentParser
+from typing import Optional
 
 import numpy as np
 import torch
@@ -54,21 +68,21 @@ from ..utils.general import seed_everything
 
 
 def load_plots(source_paths, model_base, model_tpl: cfg.ModelParams,
-               sh_degree: int, device):
+               sh_degree: int, device, write: bool = True):
+    """Each plot's Scene (its model dir and cfg_args written when
+    `write`); the caller equalises their capacities."""
     scenes = []
     for sp in source_paths:
         name = os.path.basename(os.path.normpath(sp))
         model = dataclasses.replace(
             model_tpl, source_path=sp,
             model_path=os.path.join(model_base, name))
-        os.makedirs(model.model_path, exist_ok=True)
-        cfg.save_cfg_args(model.model_path, model)
-        scenes.append(Scene(model, sh_degree=sh_degree, device=device))
-    # A common capacity, so the states stack.
-    cap = max(s.gaussians.capacity for s in scenes)
-    for s in scenes:
-        if s.gaussians.capacity < cap:
-            s.gaussians = G.grow_capacity(s.gaussians, cap)
+        if write:
+            os.makedirs(model.model_path, exist_ok=True)
+            cfg.save_cfg_args(model.model_path, model)
+        scenes.append(Scene(dataclasses.replace(
+            model, model_path=model.model_path if write else ""),
+            sh_degree=sh_degree, device=device))
     return scenes
 
 
@@ -98,27 +112,52 @@ def training(source_paths, model_base, opt: cfg.OptimizationParams,
              model_tpl: cfg.ModelParams, sh_degree: int = 3,
              views_per_step: int = 1, config: RasterConfig = RasterConfig(),
              log_every: int = 100, quiet: bool = False, seed: int = 0,
-             device="cuda"):
-    """Train the plots together; returns (scenes, stacked final states)."""
-    dev = resolve_device(device)
-    scenes = load_plots(source_paths, model_base, model_tpl, sh_degree, dev)
-    n_plots = len(scenes)
+             device="cuda", ranks: Optional[M.Ranks] = None):
+    """Train the plots together; returns (scenes, stacked final states):
+    all plots over one device, this rank's plots over `ranks`."""
+    dev = resolve_device(device) if ranks is None else ranks.device
+    n_plots = len(source_paths)
+    if ranks is None:
+        devices = [dev]
+        n_plot_dev, n_view_dev = mesh_factors(n_plots, views_per_step, 1)
+    else:
+        n_plot_dev, n_view_dev = mesh_factors(n_plots, views_per_step,
+                                              ranks.world_size)
+        if n_plot_dev * n_view_dev != ranks.world_size:
+            raise ValueError(
+                f"{n_plots} plots x {views_per_step} views a step use a "
+                f"{n_plot_dev}x{n_view_dev} mesh, not {ranks.world_size} "
+                "ranks")
+    mesh = M.make_mesh(n_plots=n_plot_dev, n_views=n_view_dev,
+                       devices=None if ranks else devices, ranks=ranks)
+    lead = mesh.index("view") == 0          # writes its plots' files
+    share = views_per_step // n_view_dev
+    my_views = slice(mesh.index("view") * share,
+                     (mesh.index("view") + 1) * share)
+    mine = list(range(n_plots))
+    if ranks is not None:
+        per = n_plots // n_plot_dev
+        mine = mine[mesh.index("plot") * per:][:per]
+    scenes = load_plots([source_paths[p] for p in mine], model_base,
+                        model_tpl, sh_degree, dev, write=lead)
+    # Every plot's capacity, so the stacks match one process's.
+    cap = max(s.gaussians.capacity for s in scenes)
+    if ranks is not None:
+        cap = _all_max(mesh, [cap])[0]
+    for s in scenes:
+        if s.gaussians.capacity < cap:
+            s.gaussians = G.grow_capacity(s.gaussians, cap)
     w, h = scenes[0].image_size
     for s in scenes:
         if s.image_size != (w, h):
             raise ValueError("plots must share a resolution")
-
-    devices = [dev]
-    n_plot_dev, n_view_dev = mesh_factors(n_plots, views_per_step,
-                                          len(devices))
-    mesh = M.make_mesh(n_plots=n_plot_dev, n_views=n_view_dev,
-                       devices=devices[:n_plot_dev * n_view_dev])
     if not quiet:
-        print(f"mesh: {mesh.shape} over {len(devices)} devices; "
+        print(f"mesh: {mesh.shape} over {mesh.devices.size} devices; "
               f"{n_plots} plots x {views_per_step} views/step @{w}x{h}")
 
-    # Over the mesh's one device, JAX's shardings are placements on it: the
-    # tensors below are made there.
+    # Over one device, JAX's shardings are placements on it: the tensors
+    # below are made there. Over ranks, each holds its plots (this rank's
+    # share of the views is cut from each step's picks).
     states = M.stack_states([s.gaussians for s in scenes])
     # (P, V, ...) camera and image banks; each step's picks are gathered.
     gts = torch.stack([torch.as_tensor(s.data.train.images, device=dev)
@@ -129,68 +168,102 @@ def training(source_paths, model_base, opt: cfg.OptimizationParams,
     bg = torch.full((3,), 1.0 if model_tpl.white_background else 0.0,
                     dtype=torch.float32, device=dev)
     n_views = gts.shape[1]
-    plot_rows = torch.arange(n_plots, device=dev)[:, None]
+    plot_rows = torch.arange(len(mine), device=dev)[:, None]
     generator = torch.Generator(device=dev)
     generator.manual_seed(seed)
 
-    step = None
+    step = step_sh = None
     rng = np.random.default_rng(seed)
     active_sh = 0
     t0 = time.time()
-    with open(os.path.join(model_base, "metrics_multi.jsonl"), "a") as log_f:
-        for it in range(1, opt.iterations + 1):
-            if it % 1000 == 0 and active_sh < sh_degree:
-                active_sh += 1
-            if step is None or step.sh_degree != active_sh:
-                step = multi_plot_step(active_sh, w, h, opt, config)
-            vi = rng.integers(n_views, size=(n_plots, views_per_step))
-            vsel = to_device(vi, dev)
-            cams = tuple(c[plot_rows, vsel] for c in cam_stacks)
-            gsel = gts[plot_rows, vsel]
-            scalars = to_device(plot_scalars(
-                it, states.adam.step + 1, opt, extents), dev)
-            states, metrics = step(states, cams, gsel, bg, scalars)
-            states.adam.step += 1
+    log_f = (open(os.path.join(model_base, "metrics_multi.jsonl"), "a")
+             if ranks is None or ranks.rank == 0 else None)
+    for it in range(1, opt.iterations + 1):
+        if it % 1000 == 0 and active_sh < sh_degree:
+            active_sh += 1
+        if step is None or step_sh != active_sh:
+            step_sh = active_sh
+            step = (multi_plot_step(active_sh, w, h, opt, config)
+                    if ranks is None else M.build_multi_plot_trainer(
+                        mesh, active_sh, w, h, opt, config))
+        # Every plot's picks (the draws of one process); this rank's plots
+        # and its share of their views.
+        vi = rng.integers(n_views, size=(n_plots, views_per_step))[mine]
+        vsel = to_device(vi[:, my_views], dev)
+        cams = tuple(c[plot_rows, vsel] for c in cam_stacks)
+        gsel = gts[plot_rows, vsel]
+        scalars = to_device(plot_scalars(
+            it, states.adam.step + 1, opt, extents), dev)
+        states, metrics = step(states, cams, gsel, bg, scalars)
+        states.adam.step += 1
 
-            if it < opt.densify_until_iter:
-                if (it > opt.densify_from_iter
-                        and it % opt.densification_interval == 0):
-                    max_screen = (20.0 if it > opt.opacity_reset_interval
-                                  else 0.0)
-                    plots, infos = [], []
-                    for p, ext in enumerate(extents):
-                        st, info = G.densify_and_prune(
-                            _plot(states, p), opt.densify_grad_threshold,
-                            0.005, ext, max_screen, opt.percent_dense,
-                            generator=generator)
-                        plots.append(st)
-                        infos.append(info)
-                    states = M.stack_states(plots)
-                    if max(int(i["n_dropped"]) for i in infos) > 0 or max(
-                            int(i["n_alive"]) for i in infos) > \
-                            0.9 * states.alive.shape[1]:
-                        states = _pad_cap(states)
-                if it % opt.opacity_reset_interval == 0 and it > 0:
-                    states = G.reset_opacity(states)
+        if it < opt.densify_until_iter:
+            if (it > opt.densify_from_iter
+                    and it % opt.densification_interval == 0):
+                max_screen = (20.0 if it > opt.opacity_reset_interval
+                              else 0.0)
+                plots, infos = [], []
+                for p in range(n_plots):
+                    if p not in mine:   # its split noise, drawn and unused
+                        torch.randn((2, states.alive.shape[1], 3),
+                                    generator=generator, device=dev)
+                        continue
+                    k = mine.index(p)
+                    st, info = G.densify_and_prune(
+                        _plot(states, k), opt.densify_grad_threshold,
+                        0.005, extents[k], max_screen, opt.percent_dense,
+                        generator=generator)
+                    plots.append(st)
+                    infos.append(info)
+                states = M.stack_states(plots)
+                top = [max(int(i["n_dropped"]) for i in infos),
+                       max(int(i["n_alive"]) for i in infos)]
+                if ranks is not None:
+                    top = _all_max(mesh, top)
+                if top[0] > 0 or top[1] > 0.9 * states.alive.shape[1]:
+                    states = _pad_cap(states)
+            if it % opt.opacity_reset_interval == 0 and it > 0:
+                states = G.reset_opacity(states)
 
-            if it % log_every == 0 or it == opt.iterations:
-                loss = metrics["loss"].tolist()
+        if it % log_every == 0 or it == opt.iterations:
+            cols = {k: metrics[k] for k in ("loss", "psnr", "n_alive")}
+            if ranks is not None:
+                cols = {k: _gather_plots(mesh, v) for k, v in cols.items()}
+            if log_f is not None:
+                loss = cols["loss"].tolist()
                 rec = {"iter": it, "loss": loss,
-                       "psnr": metrics["psnr"].tolist(),
-                       "n_alive": metrics["n_alive"].tolist(),
+                       "psnr": cols["psnr"].tolist(),
+                       "n_alive": cols["n_alive"].tolist(),
                        "elapsed_s": time.time() - t0}
                 log_f.write(json.dumps(rec) + "\n")
                 log_f.flush()
                 if not quiet:
                     print(f"[it {it}] loss {np.mean(loss):.4f} "
                           f"psnr {np.mean(rec['psnr']):.2f}", flush=True)
+    if log_f is not None:
+        log_f.close()
 
-    for p, scene in enumerate(scenes):
-        out = os.path.join(scene.model_path, "point_cloud",
-                           f"iteration_{opt.iterations}")
-        os.makedirs(out, exist_ok=True)
-        save_ply(_plot(states, p), os.path.join(out, "point_cloud.ply"))
+    if lead:
+        for k, scene in enumerate(scenes):
+            out = os.path.join(scene.model_path, "point_cloud",
+                               f"iteration_{opt.iterations}")
+            os.makedirs(out, exist_ok=True)
+            save_ply(_plot(states, k), os.path.join(out, "point_cloud.ply"))
     return scenes, states
+
+
+def _all_max(mesh: M.Mesh, values: list) -> list:
+    """Each value's maximum over every rank of the mesh."""
+    t = torch.tensor(values, dtype=torch.int64, device=mesh.device)
+    for axis in mesh.axis_names:
+        mesh.collectives(axis).all_reduce_(t, torch.distributed.ReduceOp.MAX)
+    return [int(v) for v in t.tolist()]
+
+
+def _gather_plots(mesh: M.Mesh, col: torch.Tensor) -> torch.Tensor:
+    """A (P / n_plots,) metric column of this rank's plots -> every plot's
+    (P,) column, in plot order, on every rank."""
+    return mesh.collectives("plot").all_gather(col.to(mesh.device))
 
 
 def main(argv=None):
@@ -209,9 +282,31 @@ def main(argv=None):
                         help="JAX's XLA-backend knob; accepted and unused")
     parser.add_argument("--quiet", action="store_true")
     parser.add_argument("--device", default="cuda",
-                        help="torch device (default cuda; cpu on request)")
+                        help="torch device (default cuda; cpu on request); "
+                        "a gloo rank's device, or NCCL's cuda:<rank>")
+    parser.add_argument("--dist_backend", choices=M.BACKENDS, default=None,
+                        help="run as one rank of a process group: gloo or "
+                        "nccl, with --dist_init, --world_size and --rank")
+    parser.add_argument("--dist_init", type=str, default=None,
+                        help="the group's init address, e.g. "
+                        "tcp://localhost:29500 or file:///tmp/init")
+    parser.add_argument("--world_size", type=int, default=None)
+    parser.add_argument("--rank", type=int, default=None)
     args = parser.parse_args(argv)
-    device = resolve_device(args.device)
+    dist_args = (args.dist_backend, args.dist_init, args.world_size,
+                 args.rank)
+    ranks = None
+    if any(a is not None for a in dist_args):
+        if any(a is None for a in dist_args):
+            parser.error("--dist_backend, --dist_init, --world_size and "
+                         "--rank go together")
+        ranks = M.init_ranks(args.dist_backend, args.dist_init,
+                             args.world_size, args.rank,
+                             device=(args.device if args.dist_backend
+                                     == "gloo" else None))
+        device = ranks.device
+    else:
+        device = resolve_device(args.device)
     seed_everything(0)
 
     if args.source_paths:
@@ -225,10 +320,16 @@ def main(argv=None):
     opt = cfg.extract(cfg.OptimizationParams, args)
     model_tpl = cfg.ModelParams(resolution=args.resolution,
                                 white_background=args.white_background)
-    return training(sources, args.model_base, opt, model_tpl,
-                    sh_degree=args.sh_degree,
-                    views_per_step=args.views_per_step, quiet=args.quiet,
-                    device=device)
+    try:
+        return training(sources, args.model_base, opt, model_tpl,
+                        sh_degree=args.sh_degree,
+                        views_per_step=args.views_per_step,
+                        quiet=args.quiet or (ranks is not None
+                                             and ranks.rank > 0),
+                        device=device, ranks=ranks)
+    finally:
+        if ranks is not None:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

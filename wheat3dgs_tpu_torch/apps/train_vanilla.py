@@ -94,11 +94,18 @@ def block_len(it: int, opt: cfg.OptimizationParams, end_events,
     work runs on the block's last iteration), and BEFORE the next SH-ramp
     multiple, the profile window (`profile_at` >= 0) and `debug_from`
     (those must start a block). 1 with a random background, inside the
-    profile window, and (the port's own rule: anomaly detection cannot
-    run in a captured step) from debug_from + 1 on."""
+    profile window, and (the port's own rules) from debug_from + 1 on
+    (anomaly detection cannot run in a captured step) and from a multiple
+    of BLOCK_SPAN + 1: JAX's rule ends every later block of BLOCK_SPAN + 1
+    steps one short of the log and densify multiples, so from an SH-ramp
+    block at 1000 on no block ends at a densify iteration and no densify
+    runs until an end event realigns the blocks (without checkpoints
+    every 1000 iterations, 14 of the 104 densifies of the default
+    schedule run); a one-step block there realigns them."""
     in_profile = profile_at >= 0 and (
         profile_at - 1 <= it <= profile_at + PROFILE_STEPS)
-    if opt.random_background or in_profile or 0 <= debug_from < it:
+    if (opt.random_background or in_profile or 0 <= debug_from < it
+            or it % (BLOCK_SPAN + 1) == 0):
         return 1
     ends = [(it // LOG_EVERY + 1) * LOG_EVERY,
             (it // opt.densification_interval + 1)
@@ -112,6 +119,18 @@ def block_len(it: int, opt: cfg.OptimizationParams, end_events,
     if profile_at > it:
         ends.append(profile_at - 1)
     return max(1, min(ends) - it + 1)
+
+
+def densify_record(it: int, trainer: Trainer, metrics: dict) -> dict:
+    """The metrics.jsonl record of the densify at `it`: densify_and_prune's
+    counts, then the entry budget, the block's (or step's) entries_total,
+    the overflow events so far and the capacity."""
+    info = {k: int(v) for k, v in trainer.last_densify[1].items()}
+    info.update(entry_budget=trainer.config.entry_budget,
+                entries_total=int(metrics["entries_total"]),
+                overflow_events=trainer.overflow_events,
+                capacity=trainer.state.capacity)
+    return {"iter": it, "densify": info}
 
 
 def _tensorboard(model_path: str):
@@ -228,6 +247,14 @@ def training(model: cfg.ModelParams, opt: cfg.OptimizationParams,
             if not quiet:
                 print(f"[it {it:6d}] loss {loss:.4f} psnr {rec['psnr']:.2f} "
                       f"alive {rec['n_alive']} {ips:.1f} it/s", flush=True)
+        if trainer.last_densify is not None and trainer.last_densify[0] == it:
+            rec = densify_record(it, trainer, metrics)
+            log_f.write(json.dumps(rec) + "\n")
+            log_f.flush()
+            if not quiet:
+                print(f"[it {it:6d}] densify " + " ".join(
+                    f"{k} {v}" for k, v in rec["densify"].items()),
+                    flush=True)
         if it in test_iterations:
             tp = evaluate_test(scene, trainer)
             if tp is not None:

@@ -236,6 +236,34 @@ def _scatter_rows(dst: torch.Tensor, targets: torch.Tensor,
 
 
 @torch.no_grad()
+def densify_masks(state: GaussianState, grad_threshold: float,
+                  min_opacity: float, extent: float, max_screen_size: float,
+                  percent_dense: float = 0.01) -> dict:
+    """densify_and_prune's per-splat decisions, before anything moves:
+    `stat` (grad_accum / denom, 0 where never seen) and the (C,) bool masks
+    `prune_opacity`, `prune` (with the world-size prune where
+    max_screen_size > 0), `hot`, `clone` and `split`."""
+    p = state.params
+    alive = state.alive
+    stat = torch.where(state.denom > 0,
+                       state.grad_accum / torch.clamp(state.denom, min=1.0),
+                       torch.zeros_like(state.denom))
+    max_scale = torch.exp(p.log_scales).max(dim=1).values
+    opacity = torch.sigmoid(p.opacity_logit)
+
+    prune_op = (opacity < min_opacity) & alive
+    prune = prune_op
+    if max_screen_size > 0:
+        prune = prune | ((max_scale > 0.1 * extent) & alive)
+
+    hot = (stat >= grad_threshold) & alive & ~prune
+    clone = hot & (max_scale <= percent_dense * extent)
+    split = hot & (max_scale > percent_dense * extent)
+    return {"stat": stat, "prune_opacity": prune_op, "prune": prune,
+            "hot": hot, "clone": clone, "split": split}
+
+
+@torch.no_grad()
 def densify_and_prune(
     state: GaussianState,
     grad_threshold: float,
@@ -261,21 +289,11 @@ def densify_and_prune(
     dev = state.device
     p = state.params
     alive = state.alive
-    grads = torch.where(state.denom > 0,
-                        state.grad_accum / torch.clamp(state.denom, min=1.0),
-                        torch.zeros_like(state.denom))
+    m = densify_masks(state, grad_threshold, min_opacity, extent,
+                      max_screen_size, percent_dense)
+    prune_op, prune, clone, split = (m["prune_opacity"], m["prune"],
+                                     m["clone"], m["split"])
     scales = torch.exp(p.log_scales)
-    max_scale = scales.max(dim=1).values
-    opacity = torch.sigmoid(p.opacity_logit)
-
-    prune_op = (opacity < min_opacity) & alive
-    prune = prune_op
-    if max_screen_size > 0:
-        prune = prune | ((max_scale > 0.1 * extent) & alive)
-
-    hot = (grads >= grad_threshold) & alive & ~prune
-    clone = hot & (max_scale <= percent_dense * extent)
-    split = hot & (max_scale > percent_dense * extent)
     alive_after = alive & ~prune & ~split
     free = ~alive_after
 

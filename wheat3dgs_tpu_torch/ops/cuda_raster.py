@@ -37,7 +37,9 @@ through `entry_features` and projection to the parameters.
 
 Each kernel wrapper takes its plain PyTorch version for a tensor on the
 CPU, and launches the kernel for a CUDA tensor (or raises); there is no
-fallback from one to the other. `launches` counts kernel launches.
+fallback from one to the other. `launches` counts kernel launches;
+`plain_kernels()` routes the five wrappers to their plain versions on
+the card's tensors too, for a run held against the kernels.
 
 The TPU schedule knobs (bf16 payload packing, W3_TRI_MODE,
 WHEAT3DGS_MOMENT_KERNELS, r_batch, 128-lane chunking) have no counterpart:
@@ -47,6 +49,7 @@ pack_payload=False.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 from typing import NamedTuple, Optional
@@ -729,6 +732,25 @@ def segsum(vals, seg_start, seg_end):
             (vals.data_ptr(), seg_start.data_ptr(), seg_end.data_ptr(), n,
              cols, out.data_ptr()), vals.device)
     return out
+
+
+# The rasterizer's five kernel wrappers, each with its `<name>_plain`.
+KERNELS = ("decode_cull", "composite_fwd", "composite_train_fwd",
+           "composite_bwd", "segsum")
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the five kernel wrappers to their plain versions for the
+    duration, on any device (the all-plain reference path)."""
+    mod = globals()
+    saved = {k: mod[k] for k in KERNELS}
+    try:
+        for k in KERNELS:
+            mod[k] = mod[k + "_plain"]
+        yield
+    finally:
+        mod.update(saved)
 
 
 # --- the rasterizers -------------------------------------------------------

@@ -43,7 +43,7 @@ def main(argv=None) -> dict:
     args = parser.parse_args(argv)
     with open(args.metrics) as f:
         rows = [json.loads(ln) for ln in f if ln.strip()]
-    rows = [r for r in rows if "iter" in r and "test_psnr" not in r]
+    rows = [r for r in rows if "iters_per_sec" in r]
     out = checkpoint_cost(rows, args.every)
     print(json.dumps(out))
     return out

@@ -4,8 +4,10 @@
 # arguments, steps, flags and order, each `python X.py` replaced by the
 # port's app (`python -m wheat3dgs_tpu_torch.apps.<app>`) on $DEVICE.
 #
-# Usage: [DEVICE=cuda|cpu] [ITERS=15000] \
+# Usage: [DEVICE=cuda|cpu] [ITERS=15000] [FIELD_FRAMES=200] [HEAD_FRAMES=100] \
 #   bash wheat3dgs_tpu_torch/scripts/run_wheat_3dgs.sh <data_dir> <model_dir> [exp_name] [iou]
+# (FIELD_FRAMES / HEAD_FRAMES: the 360 videos' frames, the root script's
+# by default.)
 set -euo pipefail
 
 DATA_DIR=${1:?usage: run_wheat_3dgs.sh <data_dir> <model_dir> [exp] [iou]}
@@ -14,6 +16,8 @@ EXP_NAME=${3:-default}
 IOU=${4:-0.6}
 ITERS=${ITERS:-15000}
 DEVICE=${DEVICE:-cuda}
+FIELD_FRAMES=${FIELD_FRAMES:-200}
+HEAD_FRAMES=${HEAD_FRAMES:-100}
 # The package resolves from any working directory.
 ROOT=$(cd "$(dirname "${BASH_SOURCE[0]}")/../.." && pwd)
 export PYTHONPATH="$ROOT${PYTHONPATH:+:$PYTHONPATH}"
@@ -36,10 +40,10 @@ echo "=== 4/5 seg eval + 360 videos ==="
 python -m $APPS.eval_wheatgs_app -m "$MODEL_DIR" --exp_name "$EXP_NAME" \
   --device "$DEVICE"
 python -m $APPS.render_360_app -m "$MODEL_DIR" --exp_name "$EXP_NAME" \
-  --render_type field --n_frames 200 --framerate 20 --elevation 45 \
+  --render_type field --n_frames "$FIELD_FRAMES" --framerate 20 --elevation 45 \
   --device "$DEVICE"
 python -m $APPS.render_360_app -m "$MODEL_DIR" --exp_name "$EXP_NAME" \
-  --render_type head --n_frames 100 --framerate 10 --elevation 30 \
+  --render_type head --n_frames "$HEAD_FRAMES" --framerate 10 --elevation 30 \
   --device "$DEVICE"
 
 echo "=== 5/5 morphology ==="

@@ -89,11 +89,32 @@ def step_scalars(it0: int, t0: int, n: int, opt: OptimizationParams,
     return torch.tensor(rows, dtype=torch.float64).to(torch.float32)
 
 
+def render_views(view: G.GaussianState, cams, b: int, *, width: int,
+                 height: int, sh_degree: int, bg: torch.Tensor,
+                 ndc_offset: torch.Tensor, config: RasterConfig):
+    """train_step_views' render over one process: every view of the batch
+    from `view`, as [(view index, RenderOut)], and the screen radii's
+    maximum over them."""
+    outs = [(i, render(view, *(a[i] for a in cams), width, height,
+                       sh_degree, bg=bg, ndc_offset=ndc_offset,
+                       config=config)) for i in range(b)]
+    radii = (outs[0][1].radii if b == 1
+             else torch.stack([o.radii for _, o in outs]).amax(0))
+    return outs, radii
+
+
+def grads_of(loss: torch.Tensor, inputs: list) -> list:
+    """d loss / d inputs, zeros for an input the loss does not reach."""
+    grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+    return [torch.zeros_like(x) if g is None else g
+            for x, g in zip(inputs, grads)]
+
+
 def train_step_views(state: G.GaussianState, cams, gt_images: torch.Tensor,
                      bg: torch.Tensor, scalars: torch.Tensor, *,
                      sh_degree: int, width: int, height: int,
                      opt: OptimizationParams,
-                     config: RasterConfig = RasterConfig()):
+                     config: RasterConfig = RasterConfig(), reduce=None):
     """One optimisation step over a minibatch of B views (JAX's
     train_step_views over its _step_core): cams are (w2c, full_proj,
     cam_center, tanfovx, tanfovy) with a leading B axis, gt_images
@@ -105,48 +126,65 @@ def train_step_views(state: G.GaussianState, cams, gt_images: torch.Tensor,
     the mean loss. As in JAX, the shared `ndc_offset`'s gradient (already
     that of the view mean) is divided by B again before it reaches the
     densification statistics: they accumulate |sum of the views'
-    viewspace gradients| / B^2."""
+    viewspace gradients| / B^2.
+
+    `reduce` (parallel.mesh's ViewReduce or GaussRows) spreads the step
+    over ranks: these views are one rank's share of B = reduce.total(b)
+    and the state may be its share of the rows. reduce.render_views
+    renders the views this rank renders (render_views' contract);
+    reduce.grads takes the gradients of its share of the mean loss;
+    reduce.sum_ sums them and the loss, L1 and MSE sums over the ranks;
+    reduce.max_ takes the maxima of radii and entries_total; all before
+    Adam."""
     b = gt_images.shape[0]
+    n = b if reduce is None else reduce.total(b)
     params = state.params.as_dict()
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     ndc_zero = torch.zeros((state.capacity, 2), dtype=torch.float32,
                            device=state.device, requires_grad=True)
     view = dataclasses.replace(state, params=G.GaussianParams(**leaves))
-
-    def one_view(i):
-        out = render(view, *(a[i] for a in cams), width, height, sh_degree,
-                     bg=bg, ndc_offset=ndc_zero, config=config)
+    outs, radii = (render_views if reduce is None else reduce.render_views)(
+        view, cams, b, width=width, height=height, sh_degree=sh_degree,
+        bg=bg, ndc_offset=ndc_zero, config=config)
+    losses, l1s = [], []
+    for i, out in outs:
         ll1 = l1_loss(out.color, gt_images[i])
-        loss = (1.0 - opt.lambda_dssim) * ll1 + opt.lambda_dssim * (
-            1.0 - ssim(out.color, gt_images[i]))
-        return loss, ll1, out.color, out.radii, out.entries_total
+        losses.append((1.0 - opt.lambda_dssim) * ll1 + opt.lambda_dssim * (
+            1.0 - ssim(out.color, gt_images[i])))
+        l1s.append(ll1)
 
-    if b == 1:
-        loss, ll1, color, radii, entries = one_view(0)
-        colors = [color]
-    else:
-        views = [one_view(i) for i in range(b)]
-        loss = torch.stack([v[0] for v in views]).mean()
-        ll1 = torch.stack([v[1] for v in views]).mean()
-        colors = [v[2] for v in views]
-        radii = torch.stack([v[3] for v in views]).amax(0)
-        entries = torch.stack([v[4] for v in views]).amax()
+    def share(xs):
+        """One process: the view mean. Over ranks: this rank's share of
+        it (zero where the rank renders none of the views)."""
+        if reduce is None:
+            return xs[0] if n == 1 else torch.stack(xs).mean()
+        if not xs:
+            return torch.zeros((), dtype=torch.float32, device=state.device)
+        return torch.stack(xs).sum() / n
+
+    loss, ll1 = share(losses), share(l1s)
+    entries = (outs[0][1].entries_total if len(outs) == 1 else
+               torch.stack([o.entries_total for _, o in outs]).amax()
+               if outs else torch.zeros((), dtype=torch.int32,
+                                        device=state.device))
     names = list(leaves)
     inputs = [leaves[k] for k in names] + [ndc_zero]
-    grads = torch.autograd.grad(loss, inputs, allow_unused=True)
-    grads = [torch.zeros_like(x) if g is None else g
-             for x, g in zip(inputs, grads)]
+    grads = (grads_of if reduce is None else reduce.grads)(loss, inputs)
+    with torch.no_grad():
+        mse = share([((o.color - gt_images[i]) ** 2).mean()
+                     for i, o in outs])
+        loss, ll1 = loss.detach(), ll1.detach()
+    if reduce is not None:
+        grads, (loss, ll1, mse) = reduce.sum_(grads, [loss, ll1, mse])
+        radii, entries = reduce.max_(radii, entries)
     n_lr = len(G.PARAM_FIELDS)
     adam_update(state.adam, dict(zip(names, grads[:-1])), params,
                 dict(zip(G.PARAM_FIELDS, scalars[:n_lr])), scalars[n_lr],
                 scalars[n_lr + 1])
-    G.add_densification_stats(state, grads[-1] if b == 1 else grads[-1] / b,
+    G.add_densification_stats(state, grads[-1] if n == 1 else grads[-1] / n,
                               radii)
     with torch.no_grad():
-        mses = [((c - gt_images[i]) ** 2).mean()
-                for i, c in enumerate(colors)]
-        mse = mses[0] if b == 1 else torch.stack(mses).mean()
-        metrics = {"loss": loss.detach(), "l1": ll1.detach(),
+        metrics = {"loss": loss, "l1": ll1,
                    "psnr": 20.0 * -torch.log10(torch.sqrt(mse)),
                    "n_alive": state.num_alive,
                    "entries_total": entries}
@@ -318,6 +356,8 @@ class Trainer:
         self.graph = StepGraph()
         self._table = self._j = self._bg = None
         self._last = self._block_max = None
+        # The last densify's (iteration, info), for the CLI's log.
+        self.last_densify = None
 
     def _refresh_occupancy(self, cam, width: int, height: int) -> None:
         """Re-size the entry budget from the probed allocation demand (at
@@ -477,6 +517,7 @@ class Trainer:
                     self.state, opt.densify_grad_threshold, 0.005,
                     self.extent, max_screen, opt.percent_dense,
                     generator=self.generator)
+                self.last_densify = (it, info)
                 if int(info["n_dropped"]) > 0 or (
                         int(info["n_alive"]) > 0.9 * self.state.capacity):
                     self.state = G.grow_capacity(

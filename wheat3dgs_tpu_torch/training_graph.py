@@ -29,6 +29,7 @@ so the counters stay true per executed step.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Callable, Hashable, List
 
@@ -97,3 +98,21 @@ class StepGraph:
         self.graph = graph
         self.captures += 1
         self.capture_seconds.append(time.perf_counter() - t0)
+
+
+@contextlib.contextmanager
+def eager_steps():
+    """Run every StepGraph's steps one by one, on any device, for the
+    duration: the kernels' plain versions read the host, so an all-plain
+    run on the card cannot be captured."""
+    saved = StepGraph.run
+
+    def run(self, step, n, key, device):
+        for _ in range(n):
+            step()
+
+    StepGraph.run = run
+    try:
+        yield
+    finally:
+        StepGraph.run = saved
