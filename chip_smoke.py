@@ -163,7 +163,26 @@ when run outside a checkout of the repo. Phases, each reported on a line:
    the one-process multi_plot_step (the loss and the means within JAX's
    tests/test_parallel.py tolerances, the Adam moments and grad_accum
    within DIST_MOMENT_REL of their max), with its launches counted;
-22. a `kernels` JSON line, then the device line last.
+22. the padded-tile backend (`RasterConfig(backend="xla")`, plain torch
+   ops, autograd), on train view 0 of the stand-in model: (a) render_fwd at
+   XLA_TILE with max_tiles_per_gauss and max_per_tile at the view's own
+   uncapped maxima (nothing cropped) against the kernels' render_fwd at
+   the probed budget (colour, alpha, depth within the composite
+   tolerance; pixels off at the stop's T_EPS edge counted under
+   STOP_MISMATCH_MAX, as the stop is); (b) at JAX's defaults (tile 16,
+   adapt_config's max_per_tile rung) at 800x600 on the card against the
+   same render on the CPU (within XLA_CPU_ATOL, edge pixels counted
+   likewise); (c) one train_step on (a)'s config against the kernels' step
+   from the same state (loss within rel 1e-4, every parameter's first
+   Adam moment, i.e. its gradient, within GRAD_REL of its max): autograd
+   against composite_bwd + segsum at full size; (d) an XLA_BLOCK-step
+   Trainer.step_block replayed from a CUDA graph against the same steps run
+   eagerly, twice (bit-identical, or within XLA_SPREAD_FACTOR times the
+   two eager runs' spread); (e) the ms of a render_fwd and a train_step on
+   each backend (CUDA events), the peak memory of each part, and
+   torch.backends.cuda.matmul.allow_tf32, which must be False (the path's
+   matmuls are float32);
+23. a `kernels` JSON line, then the device line last.
 Work files go to `_smoke_work/` in the checkout and are removed on success.
 """
 
@@ -304,6 +323,17 @@ DIST_LOSS_RTOL = 1e-5
 DIST_ATOL = 1e-5
 DIST_MOMENT_REL = 1e-4
 DIST_JOIN_TIMEOUT = 400.0
+# Phase 22, the padded-tile ("xla") backend: its tile at full size (the
+# entry stream's 32 px), its pixels x entries per batch of tiles (a float32
+# temporary of ~0.5 GB), the steps of its replayed block, and how far a
+# replayed block may be from eager steps against two eager runs' spread.
+XLA_TILE = 32
+XLA_BATCH_ELEMS = 1 << 27
+XLA_BLOCK = 3
+XLA_SPREAD_FACTOR = 2.0
+# The card's padded-tile render against the CPU's (JAX's raster test
+# bound, tests/test_raster.py:113).
+XLA_CPU_ATOL = 2e-5
 BENCH_KEYS = ["metric", "value", "unit", "vs_baseline", "mean_ms",
               "median_ms", "n_splats", "render_fps"]
 # cuda_time_ms, bound, fwd_bound and smi_line are bound in main(), from the
@@ -2886,6 +2916,270 @@ def dist_path(scene_dir: str) -> dict:
                 launches=launches)
 
 
+def _state_copy(st):
+    from wheat3dgs_tpu_torch.models import gaussians as G
+
+    return G.state_from_numpy(**G.state_to_numpy(st)._asdict(),
+                              device=st.device)
+
+
+def _off_pixels(got: dict, ref: dict, atol: float, rtol: float):
+    """(pixels where any field of `got` is outside atol + rtol * |ref|,
+    max abs error over all pixels, over the pixels not off)."""
+    import torch
+
+    off, errs = None, []
+    for f in ("color", "alpha", "depth"):
+        a, b = got[f], ref[f]
+        if not bool(torch.isfinite(a).all()):
+            fail(f"padded-tile {f} has non-finite values")
+        err = (a - b).abs()
+        bad = err > atol + rtol * b.abs()
+        if bad.dim() == 3:
+            bad, err = bad.any(0), err.amax(0)
+        off = bad if off is None else off | bad
+        errs.append(err)
+    err = torch.stack(errs).amax(0)
+    return (int(off.sum()), float(err.max()),
+            float(torch.where(off, torch.zeros_like(err), err).max()))
+
+
+def xla_path(scene_dir: str, model_dir: str) -> dict:
+    """Phase 22: the padded-tile backend on the card against the kernels,
+    the CPU and eager steps (see the module docstring)."""
+    import threading
+
+    import torch
+
+    from wheat3dgs_tpu_torch import config as cfg
+    from wheat3dgs_tpu_torch.models import gaussians as G
+    from wheat3dgs_tpu_torch.ops.binning import (capped_rect, count_tiles,
+                                                 num_tiles, pick_entry_budget)
+    from wheat3dgs_tpu_torch.ops.projection import project_gaussians
+    from wheat3dgs_tpu_torch.render.pipeline import (RasterConfig,
+                                                     adapt_config,
+                                                     entry_demand_probe,
+                                                     render_fwd, zero_colors)
+    from wheat3dgs_tpu_torch.scene import Scene
+    from wheat3dgs_tpu_torch.training import (LAST_METRICS, Trainer,
+                                              step_scalars, to_device,
+                                              train_step)
+    from wheat3dgs_tpu_torch.training_graph import eager_steps
+
+    t_start = time.perf_counter()
+    tf32 = bool(torch.backends.cuda.matmul.allow_tf32)
+    if tf32:
+        fail("torch.backends.cuda.matmul.allow_tf32 is on: the padded-tile "
+             "path's matmuls must be float32")
+    scene = Scene(cfg.ModelParams(source_path=scene_dir,
+                                  model_path=model_dir),
+                  load_iteration=-1, device=DEVICE)
+    st = scene.gaussians
+    w, h = scene.image_size
+    deg = scene.sh_degree
+    cam = scene.cam_arrays("train", 0)
+    peak = {}
+
+    def mark():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    def peak_gib(part):
+        torch.cuda.synchronize()
+        peak[part] = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # (a) the view's uncapped maxima at XLA_TILE: nothing cropped.
+    with torch.no_grad():
+        splats = project_gaussians(
+            st.params.means, st.scales(), st.params.quats, st.opacity(),
+            *cam, w, h, colors=zero_colors(st))
+        tiles_x, tiles_y = num_tiles(w, h, XLA_TILE)
+        _, _, sx, sy, _ = capped_rect(splats, tiles_x, tiles_y, XLA_TILE,
+                                      1 << 30)
+        mtpg = int(torch.where(splats.radius > 0, sx * sy,
+                               torch.zeros_like(sx)).max())
+        counts = count_tiles(splats, w, h, XLA_TILE, mtpg)
+        mpt = int(counts.max())
+    del splats
+    batch = max(1, XLA_BATCH_ELEMS // (XLA_TILE * XLA_TILE * mpt))
+    xconf = RasterConfig(tile=XLA_TILE, max_tiles_per_gauss=mtpg,
+                         max_per_tile=mpt, tile_batch=batch, backend="xla")
+    kconf = adapt_config(st, cam, w, h)
+    mark()
+    out_x = render_fwd(st, *cam, w, h, deg, config=xconf)
+    peak_gib("render_fwd_xla")
+    out_k = render_fwd(st, *cam, w, h, deg, config=kconf)
+    if int(out_k.entries_total) > kconf.entry_budget:
+        fail("phase 22: the kernels' render overflowed its probed budget")
+    off_a, err_a, err_a_on = _off_pixels(out_x._asdict(), out_k._asdict(),
+                                         COMPOSITE_ATOL, COMPOSITE_RTOL)
+    if off_a > STOP_MISMATCH_MAX * w * h:
+        fail(f"phase 22 (a): the padded-tile render differs from the "
+             f"kernels' on {off_a} pixels (max abs err {err_a})")
+    full = dict(tile=XLA_TILE, max_tiles_per_gauss=mtpg, max_per_tile=mpt,
+                tile_batch=batch, tiles=tiles_x * tiles_y,
+                entries=int(counts.sum()), entry_budget=kconf.entry_budget,
+                pixels_off=off_a, max_abs_err=err_a,
+                max_abs_err_on_pixels=err_a_on,
+                tolerance={"atol": COMPOSITE_ATOL, "rtol": COMPOSITE_RTOL})
+    del out_x, out_k
+
+    # (b) JAX's defaults at half size, card against CPU. The CPU's render
+    # (about a minute) runs in a thread beside (c) and (d).
+    hw, hh = w // 2, h // 2
+    hconf = adapt_config(st, cam, hw, hh, RasterConfig(backend="xla"))
+    out_g = render_fwd(st, *cam, hw, hh, deg, config=hconf)
+    card = {k: getattr(out_g, k).cpu() for k in ("color", "alpha", "depth")}
+    del out_g
+    st_cpu = G.map_tensors(lambda x: x.cpu(), st)
+    cam_cpu = tuple(c.cpu() if torch.is_tensor(c) else c for c in cam)
+    on_cpu = {}
+
+    def cpu_render():
+        t0 = time.perf_counter()
+        try:
+            on_cpu["out"] = render_fwd(st_cpu, *cam_cpu, hw, hh, deg,
+                                       config=hconf)._asdict()
+        except Exception as exc:       # reported after the join
+            on_cpu["error"] = repr(exc)
+        on_cpu["seconds"] = time.perf_counter() - t0
+
+    cpu_thread = threading.Thread(target=cpu_render, daemon=True)
+    cpu_thread.start()
+
+    # (c) one train_step on each backend from the same state.
+    if st.adam.step != 0:
+        fail("phase 22 (c): the stand-in model's Adam state is not fresh")
+    opt = cfg.OptimizationParams()
+    gt = scene.gt_image("train", 0)
+    bg = torch.zeros(3, device=DEVICE)
+    budget = pick_entry_budget(int(entry_demand_probe(
+        st, *cam, width=w, height=h)))
+    tconf = RasterConfig(entry_budget=budget)
+    row = to_device(step_scalars(1, 1, 1, opt, scene.cameras_extent),
+                    st.device)[0]
+
+    def step(config):
+        s = _state_copy(st)
+        s, m = train_step(s, cam, gt, bg, row, sh_degree=deg, width=w,
+                          height=h, opt=opt, config=config)
+        return s, m
+
+    mark()
+    sx_, mx = step(xconf)
+    peak_gib("train_step_xla")
+    sk, mk = step(tconf)
+    loss_rel = abs(float(mx["loss"]) - float(mk["loss"])) / abs(
+        float(mk["loss"]))
+    if loss_rel > 1e-4:
+        fail(f"phase 22 (c): loss {float(mx['loss'])} against the kernels' "
+             f"{float(mk['loss'])}")
+    if int(mx["entries_total"]) != -1:
+        fail("phase 22 (c): the padded-tile step reported entries_total")
+    grad_rel = {}
+    for f in G.PARAM_FIELDS:
+        ref = sk.adam.mu[f]
+        top = float(ref.abs().max())
+        grad_rel[f] = (float((sx_.adam.mu[f] - ref).abs().max()) / top
+                       if top > 0 else 0.0)
+        if grad_rel[f] > GRAD_REL:
+            fail(f"phase 22 (c): gradient of {f} {grad_rel[f]} of its max "
+                 f"(bound {GRAD_REL})")
+    acc_rel = float((sx_.grad_accum - sk.grad_accum).abs().max()) / max(
+        float(sk.grad_accum.abs().max()), 1e-30)
+    train = dict(loss=[float(mx["loss"]), float(mk["loss"])],
+                 loss_rel_err=loss_rel, grad_rel_of_max=grad_rel,
+                 grad_accum_rel_of_max=acc_rel, entry_budget=budget)
+    del sx_, sk
+
+    # (d) a replayed block against eager steps.
+    gts = torch.as_tensor(scene.data.train.images, device=DEVICE)
+    stacks = scene.cam_stack("train")
+    vis = [0, 3, 1][:XLA_BLOCK]
+
+    def block():
+        tr = Trainer(_state_copy(st), opt, scene.cameras_extent, deg,
+                     config=xconf, adaptive_occupancy=False)
+        tr.active_sh_degree = deg
+        m = tr.step_block(1, vis, stacks, gts, w, h, n_steps=XLA_BLOCK)
+        return tr, m
+
+    mark()
+    graphed, mg = block()
+    peak_gib("step_block_xla")
+    eager = []
+    with eager_steps():
+        for _ in range(2):
+            eager.append(block())
+    torch.cuda.synchronize()
+
+    def diff(a, ma, b, mb):
+        out = {}
+        for f in G.PARAM_FIELDS:
+            out[f] = getattr(a.state.params, f) - getattr(b.state.params, f)
+            out["mu." + f] = a.state.adam.mu[f] - b.state.adam.mu[f]
+            out["nu." + f] = a.state.adam.nu[f] - b.state.adam.nu[f]
+        for f in G.STAT_FIELDS:
+            out[f] = getattr(a.state, f) - getattr(b.state, f)
+        for k in LAST_METRICS:
+            out[k] = (ma[k] - mb[k]).double()
+        return {k: float(v.abs().max()) for k, v in out.items()}
+
+    (e1, m1), (e2, m2) = eager
+    graph_eager = diff(graphed, mg, e1, m1)
+    eager_eager = diff(e1, m1, e2, m2)
+    bad = {k: (graph_eager[k], eager_eager[k]) for k in graph_eager
+           if graph_eager[k] > XLA_SPREAD_FACTOR * eager_eager[k]}
+    if bad:
+        fail(f"phase 22 (d): replayed block beyond the eager spread: {bad}")
+    if int(mg["entries_total"]) != -1:
+        fail("phase 22 (d): the padded-tile block reported entries_total")
+    blk = dict(steps=XLA_BLOCK, views=vis,
+               bit_identical=not any(graph_eager.values()),
+               eager_runs_bit_identical=not any(eager_eager.values()),
+               max_abs_graph_vs_eager=max(graph_eager.values()),
+               max_abs_eager_vs_eager=max(eager_eager.values()),
+               captures=graphed.graph.captures,
+               replays=graphed.graph.replays,
+               capture_seconds=graphed.graph.capture_seconds)
+    del graphed, eager, e1, e2
+
+    cpu_thread.join()
+    if "error" in on_cpu:
+        fail(f"phase 22 (b): the CPU render raised {on_cpu['error']}")
+    off_b, err_b, err_b_on = _off_pixels(card, on_cpu["out"], XLA_CPU_ATOL,
+                                         0.0)
+    if off_b > STOP_MISMATCH_MAX * hw * hh:
+        fail(f"phase 22 (b): card and CPU differ on {off_b} pixels (max abs"
+             f" err {err_b})")
+    half = dict(size=[hw, hh], tile=hconf.tile,
+                max_tiles_per_gauss=hconf.max_tiles_per_gauss,
+                max_per_tile=hconf.max_per_tile,
+                tile_batch=hconf.tile_batch, pixels_off=off_b,
+                max_abs_err=err_b, max_abs_err_on_pixels=err_b_on,
+                atol=XLA_CPU_ATOL, cpu_seconds=on_cpu["seconds"])
+    del st_cpu, on_cpu, card
+
+    # (e) times on the card, each backend.
+    s = _state_copy(st)
+
+    def t_step(config):
+        return cuda_time_ms(lambda: train_step(
+            s, cam, gt, bg, row, sh_degree=deg, width=w, height=h, opt=opt,
+            config=config), 2, warmup=1)
+
+    times = dict(
+        render_fwd_xla_ms=cuda_time_ms(lambda: render_fwd(
+            st, *cam, w, h, deg, config=xconf), 2, warmup=1),
+        render_fwd_kernels_ms=cuda_time_ms(lambda: render_fwd(
+            st, *cam, w, h, deg, config=kconf), 5),
+        train_step_xla_ms=t_step(xconf),
+        train_step_kernels_ms=t_step(tconf))
+    return dict(seconds=time.perf_counter() - t_start, full=full,
+                half=half, train_step=train, block=blk, times=times,
+                peak_memory_gib=peak, allow_tf32=tf32, capacity=st.capacity)
+
+
 def check_probe() -> dict:
     """Phase 16: the scan probe's kinds against the plain version, at the
     cluster's edges, repeated and at 0 steps; timed at 256 and 64 steps
@@ -3227,6 +3521,22 @@ def main() -> None:
         for res in dp["ranks"]) + f" (gloo, CUDA tensors staged through "
         f"the host: {dp['ranks'][0]['staged']}); {dp['seconds']:.1f} s; "
         f"{smi}", flush=True)
+
+    # 22. the padded-tile backend against the kernels, the CPU, eager
+    xp = xla_path(scene_dir, model_dir)
+    say("xla_path", **xp)
+    print(f"xla backend: {xp['full']['pixels_off']} pixels off the "
+          f"kernels' render (max abs err "
+          f"{xp['full']['max_abs_err_on_pixels']:.2e} elsewhere) at tile "
+          f"{XLA_TILE}, K {xp['full']['max_per_tile']}; card against CPU "
+          f"{xp['half']['pixels_off']} pixels off; train_step loss rel err "
+          f"{xp['train_step']['loss_rel_err']:.2e}, gradients within "
+          f"{max(xp['train_step']['grad_rel_of_max'].values()):.2e} of "
+          f"their max; block bit-identical {xp['block']['bit_identical']}; "
+          f"render_fwd {xp['times']['render_fwd_xla_ms']:.1f} ms (kernels "
+          f"{xp['times']['render_fwd_kernels_ms']:.2f}), train_step "
+          f"{xp['times']['train_step_xla_ms']:.1f} ms (kernels "
+          f"{xp['times']['train_step_kernels_ms']:.2f}); {smi}", flush=True)
 
     src = "wheat3dgs_tpu_torch/csrc/"
     tpu = "wheat3dgs_tpu/ops/pallas_raster.py:"

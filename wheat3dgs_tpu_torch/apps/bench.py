@@ -211,12 +211,14 @@ def main(argv=None) -> dict:
     for r in range(RENDER_REPS):
         out = render_fwd(trainer.state, *cams[r % len(cams)], w, h,
                          sh_degree=3, config=config)
-        demand.append(out.entries_total)
+        if out.entries_total is not None:
+            demand.append(out.entries_total)
     _sync(dev)
     fps = RENDER_REPS / (time.time() - t0)
+    top = int(torch.stack(demand).max()) if demand else -1
     print(f"render: {fps:.1f} FPS @{w}x{h} (forward-only inference path), "
-          f"demand max {int(torch.stack(demand).max())} of budget "
-          f"{config.entry_budget}", file=sys.stderr)
+          f"demand max {top} of budget {config.entry_budget}",
+          file=sys.stderr)
 
     result = {"metric": "train_iters_per_sec", "value": round(ips, 2),
               "unit": "it/s", "vs_baseline": round(ips / BASELINE_IPS, 3),

@@ -9,7 +9,10 @@ white background) -> one video per head under wheat_head_360/.
 
 The entry budget is probed once per orbit over all its cameras
 (adapt_config(cams=...)), and every frame's entries_total is checked
-against it: a frame over budget raises, it is never cropped.
+against it: a frame over budget raises, it is never cropped. A caller's
+"xla" config (the library functions' `config`) is used as given, as JAX's
+app uses its config: no probe, no check, and the padded-tile path crops a
+tile at max_per_tile.
 
     python -m wheat3dgs_tpu_torch.apps.render_360_app -m <model>
         --exp_name e --render_type field|head [--n_frames 100]
@@ -58,7 +61,10 @@ def _orbit_cams(c2ws, fovx, fovy, device):
 def orbit_config(state, c2ws, fovx, fovy, width, height,
                  config: RasterConfig = RasterConfig()) -> RasterConfig:
     """The entry budget for every frame of the orbit `c2ws`: the maximum
-    allocation demand over all its cameras."""
+    allocation demand over all its cameras. An "xla" config is returned
+    as given."""
+    if config.backend == "xla":
+        return config
     cams = _orbit_cams(c2ws, fovx, fovy, state.device)
     return adapt_config(state, cams[0], width, height,
                         inference_config(config), cams=cams)
@@ -91,8 +97,10 @@ def _orbit_frames(state, sh_degree, c2ws, fovx, fovy, width, height, bg,
     frame while the host overlays and encodes this one. `config` must carry
     the orbit's probed budget; a frame whose demand exceeds it raises
     (each head's render draws a subset of the colour render's splats, so
-    its demand is no larger)."""
-    if config.entry_budget <= 0:
+    its demand is no larger). An "xla" config reports no demand and is
+    not checked."""
+    check = config.backend == "pallas"
+    if check and config.entry_budget <= 0:
         raise ValueError("_orbit_frames needs a probed entry budget "
                          "(orbit_config)")
     cams = _orbit_cams(c2ws, fovx, fovy, state.device)
@@ -106,7 +114,8 @@ def _orbit_frames(state, sh_degree, c2ws, fovx, fovy, width, height, bg,
     def dispatch(i):
         out = render_fwd(state, *cams[i], width, height,
                          sh_degree=sh_degree, bg=bg, config=config)
-        parts = [out.color, out.entries_total]
+        parts = [out.color, out.entries_total if check
+                 else torch.zeros((), device=state.device)]
         if labels is not None:
             parts.append(eval_obj_labels(state, labels, *cams[i],
                                          width=width, height=height,
@@ -120,7 +129,7 @@ def _orbit_frames(state, sh_degree, c2ws, fovx, fovy, width, height, bg,
         if done is not None:
             done.synchronize()                       # frame i only
         total = int(parts[1])
-        if total > config.entry_budget:
+        if check and total > config.entry_budget:
             raise RuntimeError(
                 f"orbit frame {i}: entry demand {total} over the probed "
                 f"budget {config.entry_budget}")
@@ -160,7 +169,7 @@ def render_wheat_field(model: cfg.ModelParams, exp_name: str,
                 for m in scene.data.train.metas]
     # The lift renders the train views at full size: their budget.
     n_train = len(scene.data.train.metas)
-    lift_config = adapt_config(
+    lift_config = config if config.backend == "xla" else adapt_config(
         scene.gaussians, scene.cam_arrays("train", 0), w, h,
         inference_config(config),
         cams=[scene.cam_arrays("train", i) for i in range(n_train)])

@@ -123,13 +123,17 @@ def block_len(it: int, opt: cfg.OptimizationParams, end_events,
 
 def densify_record(it: int, trainer: Trainer, metrics: dict) -> dict:
     """The metrics.jsonl record of the densify at `it`: densify_and_prune's
-    counts, then the entry budget, the block's (or step's) entries_total,
-    the overflow events so far and the capacity."""
+    counts, then the entry budget, the block's (or step's) entries_total
+    (-1 on the padded-tile backend, which also logs its max_per_tile and
+    max_tiles_per_gauss), the overflow events so far and the capacity."""
     info = {k: int(v) for k, v in trainer.last_densify[1].items()}
     info.update(entry_budget=trainer.config.entry_budget,
                 entries_total=int(metrics["entries_total"]),
                 overflow_events=trainer.overflow_events,
                 capacity=trainer.state.capacity)
+    if trainer.config.backend == "xla":
+        info.update(max_per_tile=trainer.config.max_per_tile,
+                    max_tiles_per_gauss=trainer.config.max_tiles_per_gauss)
     return {"iter": it, "densify": info}
 
 

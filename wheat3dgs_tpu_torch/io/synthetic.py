@@ -9,8 +9,11 @@ a known Gaussian scene (ground plane + ellipsoidal "wheat heads"), with
 override colours at SH degree 0 as the JAX generator does; the masks come
 from the depth-resolved head map of `seg/eval.py::eval_obj_labels`.
 Splat sizes come from a 3-nearest-neighbour distance (scipy's cKDTree).
-The JAX generator renders on its XLA backend at 16-px tiles, the port at
-32-px tiles, so the two packages' masks differ by a few boundary pixels.
+Both generators render with inference_config(RasterConfig(
+max_tiles_per_gauss=32, max_per_tile=256, tile_batch=16)): JAX's runs
+its XLA backend there on a CPU host (16-px tiles), the port's the entry
+stream (32-px tiles; the tile fields are carried and unused), so the two
+packages' masks differ by a few boundary pixels.
 """
 
 from __future__ import annotations
@@ -151,7 +154,7 @@ def _build_gt_scene(width: int, height: int, n_cams: int, n_heads: int,
     regeneration: (rng, params, colors, head_id, state, cameras, per-camera
     render arguments, focal length, raster config)."""
     from ..models.gaussians import GaussianParams, init_state
-    from ..render.pipeline import adapt_config
+    from ..render.pipeline import RasterConfig, adapt_config, inference_config
 
     rng, params, colors, head_id = gt_params(n_heads, pts_per_head,
                                              ground_pts, seed, head_centers)
@@ -164,7 +167,9 @@ def _build_gt_scene(width: int, height: int, n_cams: int, n_heads: int,
     proj = graphics.projection_matrix(0.01, 100.0, fovx, fovy)
     cams = _ring_cameras(n_cams, radius=cam_radius, elev_deg=cam_elev_deg)
     args = [cam_args(q, t, proj, fovx, fovy, dev) for q, t in cams]
-    config = adapt_config(state, args[0], width, height, cams=args)
+    config = adapt_config(state, args[0], width, height, inference_config(
+        RasterConfig(max_tiles_per_gauss=32, max_per_tile=256,
+                     tile_batch=16)), cams=args)
     return rng, params, colors, head_id, state, cams, args, fx, config
 
 

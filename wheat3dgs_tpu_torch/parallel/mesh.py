@@ -62,9 +62,8 @@ import torch.distributed as dist
 from .. import resolve_device
 from ..config import OptimizationParams
 from ..models import gaussians as G
-from ..ops.cuda_raster import rasterize
 from ..ops.projection import Splats2D, project_gaussians
-from ..render.pipeline import RasterConfig
+from ..render.pipeline import RasterConfig, rasterize_config
 from ..training import (PLOT_METRICS, grads_of, multi_plot_step,
                         render_views, train_step_views)
 
@@ -462,8 +461,8 @@ class GaussRows:
         full_radius = self.gauss.all_gather(radius.to(torch.int32)).reshape(
             g, b, -1).transpose(0, 1).reshape(b, -1)
         self._rows, self._full = rows, full
-        outs = [(j, rasterize(_unpack_rows(full[j], full_radius[j]), width,
-                              height, bg, entry_budget=config.entry_budget))
+        outs = [(j, rasterize_config(_unpack_rows(full[j], full_radius[j]),
+                                     width, height, bg, config))
                 for j in range(self.gauss.index, b, g)]
         return outs, radius.amax(0)
 

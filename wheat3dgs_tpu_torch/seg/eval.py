@@ -5,8 +5,8 @@ utils/wheatgs_helper.py:245-271 / eval_wheatgs.py:29-55): one alpha + depth
 render per head, then the sequential overlap combine in ascending head
 order: alpha > 0.5 claims a pixel, and a head that overlaps pixels already
 claimed wins them only if its mean depth over the overlap is smaller. The
-JAX lax.map over heads is a Python loop here; the combine stays on the
-device.
+JAX lax.map over heads is a Python loop here, on either backend; the
+combine stays on the device.
 """
 
 from __future__ import annotations
@@ -23,7 +23,8 @@ from . import flashsplat
 def eval_obj_labels(state: GaussianState, obj_labels, w2c, full_proj,
                     cam_center, tanfovx, tanfovy, *, width: int, height: int,
                     config: RasterConfig = RasterConfig(),
-                    with_areas: bool = False, nonempty=None):
+                    head_batch: int = 8, with_areas: bool = False,
+                    nonempty=None):
     """obj_labels: (L+1, cap) bool membership (row 0 = background, not
     drawn). Returns the (H, W) int32 map of head ids; with_areas=True also
     returns the (L+1,) int32 AMODAL footprint per row (alpha > 0.5 pixels
@@ -32,7 +33,13 @@ def eval_obj_labels(state: GaussianState, obj_labels, w2c, full_proj,
 
     nonempty: the rows' `any()` as a host list, for callers that render
     many views of the same labels; computed here when None (a host read,
-    which waits for the device)."""
+    which waits for the device).
+
+    head_batch: JAX's heads per lax.map batch on its XLA backend, a memory
+    knob that does not change the result; the port renders one head at a
+    time on either backend, so it only checks the value."""
+    if head_batch < 1:
+        raise ValueError(f"head_batch {head_batch} < 1")
     dev = state.device
     labels = torch.as_tensor(obj_labels, device=dev).to(torch.bool)
     l1 = labels.shape[0]

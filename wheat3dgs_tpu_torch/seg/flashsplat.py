@@ -12,6 +12,11 @@ Counterpart of wheat3dgs_tpu/seg/flashsplat.py:
   with the view's bit-packed SAM masks on the device; only per-view
   scalars (or the packed prediction bits) go to the host.
 The JAX package vmaps / lax.maps over the camera batch; the port loops.
+Each function renders with the backend its config names. On "xla" the
+renders report no entry demand: the association steps return -1 for its
+maximum (JAX returns 0), so callers retry on overflow only on "pallas".
+JAX's lift_view always lifts on its padded-tile path; the port's lifts on
+the entry stream unless the config is "xla".
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ import torch
 from ..models.gaussians import GaussianState
 from ..ops import mask_lift
 from ..ops.projection import project_gaussians
-from ..render.pipeline import RasterConfig, render_fwd
+from ..render.pipeline import RasterConfig, render, render_fwd
 
 multi_instance_opt = mask_lift.multi_instance_opt
 
@@ -48,10 +53,16 @@ def lift_view(state: GaussianState, w2c, full_proj, cam_center, tanfovx,
               with_contrib: bool = True) -> mask_lift.LiftOut:
     """used_count for one view and an (H, W) label image (reference
     opt_label_w_seg inner call, run_3d_seg.py:92-97); with_contrib as in
-    mask_lift.lift_mask."""
+    mask_lift.lift_mask. An "xla" config lifts per tile with its tile
+    fields (contrib_num always filled)."""
     splats = _project(state, w2c, full_proj, cam_center, tanfovx, tanfovy,
                       width, height)
     gt = torch.as_tensor(gt_mask, device=state.device)
+    if config.backend == "xla":
+        return mask_lift.lift_mask_tiles(
+            splats, gt, num_obj, width, height, config.tile,
+            config.max_tiles_per_gauss, config.max_per_tile,
+            config.tile_batch)
     return mask_lift.lift_mask(splats, gt, num_obj, width, height,
                                entry_budget=config.entry_budget,
                                with_contrib=with_contrib)
@@ -64,11 +75,23 @@ def lift_batch8(state: GaussianState, w2c, full_proj, cam_center, tanfovx,
     (8, ceil(H*W/8)) uint8 bit-packed masks (np.packbits order) -> (8, N)
     float32 counts, used_count[m, i] = sum_{p in mask_m} w_{p,i} (the
     gradient of sum(masks * render(override_color=c).color) in c at c = 0;
-    see ops/mask_lift.py)."""
+    see ops/mask_lift.py). On "xla" that gradient is autograd's through
+    the padded-tile render, as JAX's."""
     bits = torch.as_tensor(mask_bits8, device=state.device)
     if bits.shape[0] != mask_lift.LABELS_PER_PASS:
         raise ValueError(f"lift_batch8: expected 8 masks, got {bits.shape[0]}")
     planes = _unpack_bits(bits, width * height).reshape(-1, height, width)
+    if config.backend == "xla":
+        with torch.enable_grad():
+            colors = torch.zeros((state.capacity, bits.shape[0]),
+                                 dtype=torch.float32, device=state.device,
+                                 requires_grad=True)
+            out = render(state, w2c, full_proj, cam_center, tanfovx,
+                         tanfovy, width, height, 0, override_color=colors,
+                         config=config)
+            (g,) = torch.autograd.grad(out.color, colors,
+                                       grad_outputs=planes)
+        return g.T
     splats = _project(state, w2c, full_proj, cam_center, tanfovx, tanfovy,
                       width, height)
     counts, _ = mask_lift.lift_planes(splats, planes, width, height,
@@ -79,6 +102,14 @@ def lift_batch8(state: GaussianState, w2c, full_proj, cam_center, tanfovx,
 def _subset_render(state, cam, used_mask, width, height, config):
     return render_fwd(state, *cam, width, height, 0, used_mask=used_mask,
                       config=config, with_color=False, with_depth=False)
+
+
+def _max_total(totals, dev) -> torch.Tensor:
+    """The largest of the renders' entries_total; -1 where they report
+    none."""
+    if totals[0] is None:
+        return torch.full((), -1, dtype=torch.int32, device=dev)
+    return torch.stack(totals).max()
 
 
 def alpha_views(state: GaussianState, w2c, full_proj, cam_center, tanfovx,
@@ -154,7 +185,7 @@ def match_views_packed(state: GaussianState, w2c, full_proj, cam_center,
     device. Returns device tensors (used_mask (N,) bool, inter (B, M)
     int32 intersection pixel counts with each mask, pred_area (B,) int32,
     bbox (B, 4) int32, entries_max 0-d int32: the largest entries_total of
-    the renders, for overflow detection).
+    the renders, for overflow detection; -1 on "xla").
 
     Reference semantics: used_mask = multi_instance_opt row 1
     (run_3d_seg.py:107-114); per view, pred_seg = subset alpha > 0.5 and
@@ -172,7 +203,7 @@ def match_views_packed(state: GaussianState, w2c, full_proj, cam_center,
         inter.append(_popcount_and(_pack_bits(pred)[None, :], mask_bits[i]))
         totals.append(out.entries_total)
     return (used, torch.stack(inter), torch.stack(area), torch.stack(bbox),
-            torch.stack(totals).max())
+            _max_total(totals, state.device))
 
 
 @torch.no_grad()
@@ -180,8 +211,9 @@ def predbits_views(state: GaussianState, w2c, full_proj, cam_center,
                    tanfovx, tanfovy, used_mask, *, width: int, height: int,
                    config: RasterConfig = RasterConfig()):
     """(B, ceil(H*W/8)) uint8 bit-packed pred-seg (alpha > 0.5) of the
-    used_mask subset in every view and the largest entries_total: the
-    per-head 2D projection (run_3d_seg.py:351-377) as packed bits."""
+    used_mask subset in every view and the largest entries_total (-1 on
+    "xla"): the per-head 2D projection (run_3d_seg.py:351-377) as packed
+    bits."""
     used = torch.as_tensor(used_mask, device=state.device)
     cams = (w2c, full_proj, cam_center, tanfovx, tanfovy)
     bits, totals = [], []
@@ -190,4 +222,4 @@ def predbits_views(state: GaussianState, w2c, full_proj, cam_center,
                              height, config)
         bits.append(_pack_bits(out.alpha > 0.5))
         totals.append(out.entries_total)
-    return torch.stack(bits), torch.stack(totals).max()
+    return torch.stack(bits), _max_total(totals, state.device)

@@ -161,6 +161,10 @@ class SegContext:
             self.seg_budget = max(2048, _ceil128(full // 8))
 
     def _seg_config(self) -> RasterConfig:
+        """The subset renders' config: the subset budget on "pallas"; an
+        "xla" config unchanged (its tile fields size it)."""
+        if self.config.backend != "pallas":
+            return self.config
         return dataclasses.replace(self.config, entry_budget=self.seg_budget)
 
     def cached_counts(self, cam_i: int, path: str) -> np.ndarray:
@@ -198,7 +202,8 @@ class SegContext:
 
     def match_device(self, counts: np.ndarray):
         """used_mask and per-view (inter, pred_area, bbox) from one
-        association step; reruns at a larger subset budget on overflow."""
+        association step; on "pallas" reruns at a larger subset budget on
+        overflow."""
         self._ensure_device()
         while True:
             used, inter, area, bbox, entries = flashsplat.match_views_packed(
@@ -206,7 +211,7 @@ class SegContext:
                 width=self.width, height=self.height,
                 config=self._seg_config())
             entries = int(entries)
-            if entries <= self.seg_budget:
+            if self.config.backend != "pallas" or entries <= self.seg_budget:
                 return (used.cpu().numpy(), inter.cpu().numpy(),
                         area.cpu().numpy(), bbox.cpu().numpy())
             self.seg_budget = _ceil128(entries * 2)
@@ -222,7 +227,7 @@ class SegContext:
                 self.state, *cam_stack, used_mask, width=self.width,
                 height=self.height, config=self._seg_config())
             entries = int(entries)
-            if entries <= self.seg_budget:
+            if self.config.backend != "pallas" or entries <= self.seg_budget:
                 bits = bits.cpu().numpy()
                 n = self.height * self.width
                 return np.unpackbits(

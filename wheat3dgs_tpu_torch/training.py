@@ -21,9 +21,12 @@ train_vanilla_3dgs.py:55-121):
   another on the card, each on views into the stack; on a CUDA device the
   whole step is replayed from a CUDA graph.
 - `Trainer`: camera-independent schedule — SH warm-up, random background
-  from a torch.Generator, the entry-budget ladder (the JAX Pallas branch of
-  `_refresh_occupancy`; the port has no XLA backend), the deferred overflow
-  watchdog, and densify/prune/opacity reset with capacity growth.
+  from a torch.Generator, the occupancy ladder of JAX's
+  `_refresh_occupancy` (the entry budget on "pallas"; on "xla"
+  `occupancy_probe`'s max tile count and 99th-percentile footprint pick
+  max_per_tile and max_tiles_per_gauss), the deferred overflow watchdog
+  (on "pallas" only: the padded-tile path reports no demand), and
+  densify/prune/opacity reset with capacity growth.
   `Trainer.step` runs one step; `Trainer.step_block` (JAX's `step_block`
   over `train_step_scan`) runs K steps from a device table of view picks
   and scalar rows: on a CUDA device replayed from a CUDA graph
@@ -42,9 +45,12 @@ import torch
 from .config import OptimizationParams
 from .models import gaussians as G
 from .models.optim import adam_update, bias_corrections
-from .ops.binning import pick_entry_budget
+from .ops.binning import (capped_rect, count_tiles, num_tiles,
+                          pick_entry_budget, pick_max_per_tile, pick_mtpg)
 from .ops.losses import l1_loss, ssim
-from .render.pipeline import RasterConfig, entry_demand_probe, render
+from .ops.projection import project_gaussians
+from .render.pipeline import (RasterConfig, entry_demand_probe, render,
+                              zero_colors)
 from .training_graph import StepGraph
 from .utils.general import expon_lr
 
@@ -57,6 +63,30 @@ LAST_METRICS = ("loss", "l1", "psnr", "n_alive")
 PLOT_METRICS = {"loss": torch.float32, "l1": torch.float32,
                 "psnr": torch.float32, "n_alive": torch.int64,
                 "entries_total": torch.int32}
+
+
+@torch.no_grad()
+def occupancy_probe(state: G.GaussianState, w2c, full_proj, cam_center,
+                    tanfovx, tanfovy, *, width: int, height: int,
+                    tile: int = 16, mtpg: int = 16):
+    """One view's max per-tile splat count, the 99th percentile of the
+    visible splats' uncapped tile footprints (at least 1) and the total
+    entry count, as 0-d tensors (JAX's occupancy_probe): they size the
+    padded-tile path's max_per_tile and max_tiles_per_gauss."""
+    splats = project_gaussians(
+        state.params.means, state.scales(), state.params.quats,
+        state.opacity(), w2c, full_proj, cam_center, tanfovx, tanfovy,
+        width, height, colors=zero_colors(state))
+    counts = count_tiles(splats, width, height, tile, mtpg)
+    tiles_x, tiles_y = num_tiles(width, height, tile)
+    _, _, sx, sy, _ = capped_rect(splats, tiles_x, tiles_y, tile, 1 << 30)
+    vis = splats.radius > 0
+    areas = torch.where(vis, sx * sy, torch.zeros_like(sx))
+    n = areas.shape[0]
+    at = torch.clamp(n - 1 - torch.div(vis.sum(), 100, rounding_mode="floor"),
+                     max=n - 1)
+    p99 = torch.sort(areas).values[at]
+    return counts.max(), torch.clamp(p99, min=1), counts.sum()
 
 
 def lr_tree(it: int, opt: OptimizationParams,
@@ -123,7 +153,8 @@ def train_step_views(state: G.GaussianState, cams, gt_images: torch.Tensor,
 
     For B > 1 the loss, L1 and the views' MSE (hence PSNR) are means over
     the views, radii and entries_total maxima, and the gradients those of
-    the mean loss. As in JAX, the shared `ndc_offset`'s gradient (already
+    the mean loss. entries_total is -1 on the "xla" backend, which reports
+    no demand. As in JAX, the shared `ndc_offset`'s gradient (already
     that of the view mean) is divided by B again before it reaches the
     densification statistics: they accumulate |sum of the views'
     viewspace gradients| / B^2.
@@ -163,10 +194,11 @@ def train_step_views(state: G.GaussianState, cams, gt_images: torch.Tensor,
         return torch.stack(xs).sum() / n
 
     loss, ll1 = share(losses), share(l1s)
-    entries = (outs[0][1].entries_total if len(outs) == 1 else
-               torch.stack([o.entries_total for _, o in outs]).amax()
-               if outs else torch.zeros((), dtype=torch.int32,
-                                        device=state.device))
+    totals = [_entries(o, state.device) for _, o in outs]
+    entries = (totals[0] if len(totals) == 1 else
+               torch.stack(totals).amax() if totals else
+               torch.full((), 0 if config.backend == "pallas" else -1,
+                          dtype=torch.int32, device=state.device))
     names = list(leaves)
     inputs = [leaves[k] for k in names] + [ndc_zero]
     grads = (grads_of if reduce is None else reduce.grads)(loss, inputs)
@@ -191,6 +223,13 @@ def train_step_views(state: G.GaussianState, cams, gt_images: torch.Tensor,
     return state, metrics
 
 
+def _entries(out, dev) -> torch.Tensor:
+    """A render's entries_total, -1 where the path reports none."""
+    if out.entries_total is None:
+        return torch.full((), -1, dtype=torch.int32, device=dev)
+    return out.entries_total
+
+
 def train_step(state: G.GaussianState, cam, gt_image: torch.Tensor,
                bg: torch.Tensor, scalars: torch.Tensor, *, sh_degree: int,
                width: int, height: int, opt: OptimizationParams,
@@ -205,7 +244,7 @@ def train_step(state: G.GaussianState, cam, gt_image: torch.Tensor,
     graph. Returns (state, metrics) with 0-d tensor metrics (nothing is
     read back to the host): loss, l1, psnr, n_alive and entries_total (the
     render's allocation demand; > config.entry_budget means entries were
-    cropped).
+    cropped; -1 on "xla").
     """
     return train_step_views(state, tuple(a[None] for a in cam),
                             gt_image[None], bg, scalars, sh_degree=sh_degree,
@@ -318,7 +357,8 @@ multi_plot_step = MultiPlotStep
 
 class Trainer:
     """The host-side training loop: SH warm-up, densify schedule, capacity
-    growth and the entry-budget ladder. Mirrors training()
+    growth and the occupancy ladder (the entry budget on "pallas",
+    max_per_tile and max_tiles_per_gauss on "xla"). Mirrors training()
     (train_vanilla_3dgs.py:32-121)."""
 
     def __init__(self, state: G.GaussianState, opt: OptimizationParams,
@@ -360,15 +400,30 @@ class Trainer:
         self.last_densify = None
 
     def _refresh_occupancy(self, cam, width: int, height: int) -> None:
-        """Re-size the entry budget from the probed allocation demand (at
-        the start, after every densify/prune/capacity event and on overflow
-        signals, not per step); never lowered."""
-        demand = int(entry_demand_probe(self.state, *cam, width=width,
-                                        height=height))
-        budget = max(self.config.entry_budget, pick_entry_budget(demand))
-        if budget != self.config.entry_budget:
-            self.config = dataclasses.replace(self.config,
-                                              entry_budget=budget)
+        """Re-size the rasterizer from the probed occupancy (at the start,
+        after every densify/prune/capacity event and on overflow signals,
+        not per step). "pallas": the entry budget from the allocation
+        demand, never lowered. "xla": the max_tiles_per_gauss rung over
+        the 99th-percentile footprint and the max_per_tile rung over 1.5x
+        the max tile count, both free to move either way (JAX's rule)."""
+        if self.config.backend == "pallas":
+            demand = int(entry_demand_probe(self.state, *cam, width=width,
+                                            height=height))
+            budget = max(self.config.entry_budget,
+                         pick_entry_budget(demand))
+            if budget != self.config.entry_budget:
+                self.config = dataclasses.replace(self.config,
+                                                  entry_budget=budget)
+        else:
+            max_count, p99_area, _ = occupancy_probe(
+                self.state, *cam, width=width, height=height,
+                tile=self.config.tile, mtpg=self.config.max_tiles_per_gauss)
+            mtpg = pick_mtpg(int(p99_area))
+            mpt = pick_max_per_tile(int(max_count), headroom=1.5)
+            if (mpt != self.config.max_per_tile
+                    or mtpg != self.config.max_tiles_per_gauss):
+                self.config = dataclasses.replace(
+                    self.config, max_per_tile=mpt, max_tiles_per_gauss=mtpg)
         self._occupancy_due = False
 
     def _background(self) -> torch.Tensor:
@@ -393,7 +448,8 @@ class Trainer:
             sh_degree=self.active_sh_degree, width=width, height=height,
             opt=self.opt, config=self.config)
         self.state.adam.step += 1
-        if self.adaptive_occupancy and it % self.overflow_check_every == 0:
+        if (self.adaptive_occupancy and self.config.backend == "pallas"
+                and it % self.overflow_check_every == 0):
             self._check_overflow(metrics["entries_total"])
         self.maybe_densify(it)
         return metrics
@@ -412,7 +468,8 @@ class Trainer:
         entries_total) and densify run after it, on its last iteration:
         the caller ends blocks before an SH multiple and at densify
         iterations. Returns the last step's loss, l1, psnr and n_alive and
-        the block's maximum entries_total, as 0-d device tensors."""
+        the block's maximum entries_total (-1 on "xla"), as 0-d device
+        tensors."""
         if n_steps < 1:
             raise ValueError(f"n_steps {n_steps} < 1")
         views = [int(v) for v in view_idx]
@@ -434,7 +491,7 @@ class Trainer:
         self._block_buffers(n_steps)
         self._table[:n_steps].copy_(to_device(host, self.state.device))
         self._j.zero_()
-        self._block_max.zero_()
+        self._block_max.fill_(-1)
         self._bg.copy_(bg)
         deg, config = self.active_sh_degree, self.config
 
@@ -457,7 +514,7 @@ class Trainer:
         self.state.adam.step += n_steps
         metrics = {k: v.clone() for k, v in self._last.items()}
         metrics["entries_total"] = self._block_max.clone()
-        if self.adaptive_occupancy:
+        if self.adaptive_occupancy and self.config.backend == "pallas":
             self._check_overflow(metrics["entries_total"])
         self.maybe_densify(it_last)
         return metrics
@@ -481,8 +538,9 @@ class Trainer:
     def _graph_key(self, cam_stacks, gt_stack, width: int,
                    height: int) -> tuple:
         """What a captured step bakes in: the address and shape of every
-        tensor it reads or writes outside its own memory pool, the entry
-        budget, the active SH degree and the image size. Densify/prune,
+        tensor it reads or writes outside its own memory pool, the raster
+        config (the entry budget, or the padded-tile path's rungs), the
+        active SH degree and the image size. Densify/prune,
         capacity growth, opacity reset and a checkpoint load replace state
         tensors, so each changes the key."""
         tensors = (state_tensors(self.state) + list(cam_stacks)

@@ -157,7 +157,8 @@ class ViewerState:
         with self.lock:
             out = render_fwd(self.state, *cam, self.width, self.height,
                              sh_degree=self.sh_degree, config=self.config)
-            total = int(out.entries_total)
+            total = (int(out.entries_total) if self.config.backend
+                     == "pallas" else 0)
             if total > self.config.entry_budget:
                 # A novel view exceeded the probed entry budget (the render
                 # cropped splats): raise the rung and re-render this frame.
