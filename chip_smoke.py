@@ -182,7 +182,23 @@ when run outside a checkout of the repo. Phases, each reported on a line:
    each backend (CUDA events), the peak memory of each part, and
    torch.backends.cuda.matmul.allow_tf32, which must be False (the path's
    matmuls are float32);
-23. a `kernels` JSON line, then the device line last.
+23. the scene of JAX's exp_bench2 table: exp_bench2's ground-truth scene
+   (36 views at 1600x1200, 32 heads x 3000 + 104,000 ground, seed 0)
+   built on the card by the generator's _build_gt_scene three ways, no
+   files written, with the launch counters reset just before and read
+   just after: colour noise 0.05 (the generator of commit 54bd0ea, where
+   JAX's table was taken) and 0.15 (today's), both with splats sized by
+   the exact 3-NN distance, and 0.05 sized by the 3-NN distance as JAX
+   computes it on a TPU (knn="bfloat16"); test cameras 10, 11 and 22
+   (JAX's docs/quality/00000-00002.png) rendered through render_fwd and
+   quantized as the generator writes them; per camera the mean
+   horizontal step and mean 8x8 block std of each image and of JAX's
+   render, and the PSNR of JAX's render against each, with each build's
+   share of splats at the 1e-4 scale floor. It fails unless, on every
+   camera, the 0.05 scene's two statistics are nearer JAX's render than
+   the 0.15 scene's, and the TPU kNN's 0.05 scene has a higher PSNR
+   against it than the exact kNN's;
+24. a `kernels` JSON line, then the device line last.
 Work files go to `_smoke_work/` in the checkout and are removed on success.
 """
 
@@ -334,6 +350,17 @@ XLA_SPREAD_FACTOR = 2.0
 # The card's padded-tile render against the CPU's (JAX's raster test
 # bound, tests/test_raster.py:113).
 XLA_CPU_ATOL = 2e-5
+# Phase 23, the scene of JAX's exp_bench2 table: exp_bench2's plot (36
+# ring views at 1600x1200) built as each ground truth (colour noise, kNN),
+# in this order: the 0.05 scene of commit 54bd0ea and today's 0.15 one,
+# both with the exact kNN, then the 0.05 scene with the kNN JAX computes on
+# a TPU; and its first three test cameras, whose JAX renders are
+# docs/quality/00000-00002.png.
+REFERENCE_SCENE = dict(width=1600, height=1200, n_cams=36, n_heads=32,
+                       pts_per_head=3000, ground_pts=104_000, seed=0)
+REFERENCE_GTS = {"0.05": (0.05, "exact"), "0.15": (0.15, "exact"),
+                 "0.05 tpu_knn": (0.05, "bfloat16")}
+REFERENCE_CAMS = (10, 11, 22)
 BENCH_KEYS = ["metric", "value", "unit", "vs_baseline", "mean_ms",
               "median_ms", "n_splats", "render_fps"]
 # cuda_time_ms, bound, fwd_bound and smi_line are bound in main(), from the
@@ -3180,6 +3207,89 @@ def xla_path(scene_dir: str, model_dir: str) -> dict:
                 peak_memory_gib=peak, allow_tf32=tf32, capacity=st.capacity)
 
 
+def reference_scene() -> dict:
+    """Phase 23: exp_bench2's ground-truth scene built on the card with the
+    generator's _build_gt_scene (no files) as each of REFERENCE_GTS, its
+    REFERENCE_CAMS rendered through render_fwd as the generator renders
+    them and quantized as it writes them, each held to JAX's saved render
+    of that camera by texture (mean horizontal step, mean 8x8 block std)
+    and PSNR. Fails unless, on every camera, both statistics of the 0.05
+    scene are nearer JAX's render than those of the 0.15 scene, and the
+    0.05 scene sized by JAX's TPU kNN has a higher PSNR against it than
+    the one sized by the exact kNN."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from wheat3dgs_tpu_torch.io import synthetic as SY
+    from wheat3dgs_tpu_torch.ops import cuda_raster as CR
+    from wheat3dgs_tpu_torch.render.pipeline import render_fwd
+    from wheat3dgs_tpu_torch.utils import image_stats as S
+
+    t_start = time.perf_counter()
+    jax = {cam: S.unit(np.asarray(Image.open(os.path.join(
+        ROOT, "docs", "quality", f"{k:05d}.png")).convert("RGB")))
+        for k, cam in enumerate(REFERENCE_CAMS)}
+    r = REFERENCE_SCENE
+    w, h = r["width"], r["height"]
+    gts, demand, builds = {}, {}, {}
+    CR.reset_launches()
+    for name, (noise, knn) in REFERENCE_GTS.items():
+        t0 = time.perf_counter()
+        (_, params, colors, _, state, _, args, _,
+         config) = SY._build_gt_scene(
+            w, h, r["n_cams"], r["n_heads"], r["pts_per_head"],
+            r["ground_pts"], r["seed"], DEVICE, 2.2, 40.0, None,
+            color_noise=noise, knn=knn)
+        colors_cap = torch.zeros((state.capacity, 3), device=DEVICE)
+        colors_cap[:len(colors)] = torch.as_tensor(colors, device=DEVICE)
+        for cam in REFERENCE_CAMS:
+            out = render_fwd(state, *args[cam], w, h, sh_degree=0,
+                             override_color=colors_cap, config=config)
+            if int(out.entries_total) > config.entry_budget:
+                fail(f"reference scene {name}, camera {cam}: demand "
+                     f"{int(out.entries_total)} over budget "
+                     f"{config.entry_budget}")
+            gts[name, cam] = S.as_png(
+                out.color.cpu().numpy().transpose(1, 2, 0))
+            demand[name, cam] = int(out.entries_total)
+        torch.cuda.synchronize()
+        floor = params["log_scales"][:, 0] <= np.log(1e-4) + 1e-6
+        builds[name] = dict(seconds=time.perf_counter() - t0,
+                            color_noise=noise, knn=knn, splats=len(colors),
+                            capacity=state.capacity,
+                            entry_budget=config.entry_budget,
+                            scale_floor_share=float(floor.mean()),
+                            median_scale=float(np.exp(np.median(
+                                params["log_scales"][:, 0]))))
+        del state, args, colors_cap
+    launches = dict(CR.launches)
+    for k in ("decode_cull", "composite_fwd"):
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched on the reference scene")
+    cams = []
+    for cam in REFERENCE_CAMS:
+        ref = S.texture(jax[cam])
+        row = {"camera": cam, "jax": ref}
+        for name in REFERENCE_GTS:
+            row[name] = dict(S.texture(gts[name, cam]),
+                             psnr_jax_render=S.psnr(jax[cam], gts[name, cam]),
+                             entries=demand[name, cam])
+        lo, hi, tpu = (row[x] for x in REFERENCE_GTS)
+        for k in ("h_step", "block_std"):
+            if not abs(lo[k] - ref[k]) < abs(hi[k] - ref[k]):
+                fail(f"camera {cam}: the {k} of JAX's render ({ref[k]:.5f})"
+                     f" is not nearer the 0.05 scene's ({lo[k]:.5f}) than "
+                     f"the 0.15 scene's ({hi[k]:.5f})")
+        if not tpu["psnr_jax_render"] > lo["psnr_jax_render"]:
+            fail(f"camera {cam}: JAX's render is not nearer the 0.05 scene "
+                 f"sized by the TPU kNN ({tpu['psnr_jax_render']:.2f} dB) "
+                 f"than by the exact one ({lo['psnr_jax_render']:.2f} dB)")
+        cams.append(row)
+    return dict(seconds=time.perf_counter() - t_start, builds=builds,
+                launches=launches, cameras=cams)
+
+
 def check_probe() -> dict:
     """Phase 16: the scan probe's kinds against the plain version, at the
     cluster's edges, repeated and at 0 steps; timed at 256 and 64 steps
@@ -3538,6 +3648,21 @@ def main() -> None:
           f"{xp['times']['train_step_xla_ms']:.1f} ms (kernels "
           f"{xp['times']['train_step_kernels_ms']:.2f}); {smi}", flush=True)
 
+    # 23. the scene JAX's exp_bench2 table was measured on
+    rs = reference_scene()
+    say("reference_scene", **rs)
+    print("reference scene: " + "; ".join(
+        f"camera {c['camera']}: JAX's render h_step "
+        f"{c['jax']['h_step']:.5f}, block_std {c['jax']['block_std']:.5f}"
+        + "".join(f", GT {x}: {c[x]['h_step']:.5f} / "
+                  f"{c[x]['block_std']:.5f}, PSNR of JAX's render "
+                  f"{c[x]['psnr_jax_render']:.2f} dB"
+                  for x in REFERENCE_GTS) for c in rs["cameras"])
+        + "; splats at the 1e-4 scale floor " + ", ".join(
+            f"{x} {b['scale_floor_share']:.1%}"
+            for x, b in rs["builds"].items())
+        + f"; {rs['seconds']:.1f} s; {smi}", flush=True)
+
     src = "wheat3dgs_tpu_torch/csrc/"
     tpu = "wheat3dgs_tpu/ops/pallas_raster.py:"
     keys = ("value_rows", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -3570,7 +3695,8 @@ def main() -> None:
                          "eval_script": pp["eval_script"]["launches"][name],
                          "multi_plot": mpp["launches"][name],
                          "bench": bp["launches"].get(name, 0),
-                         "distributed": dp["launches"][name]},
+                         "distributed": dp["launches"][name],
+                         "reference_scene": rs["launches"][name]},
                      "segmentation_shapes": [
                          {k: x.get(k) for k in keys} for x in shapes]})
     # The probe's row: the cumsum kind (torch.cumsum computes the same

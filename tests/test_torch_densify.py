@@ -10,7 +10,10 @@
   entries_total, the overflow events, the capacity), and
   scripts/densify_trace.py's `run` (default, and with `--plain --eager`,
   which on the CPU runs the same plain code step by step) gives equal
-  records; `compare` puts two runs side by side.
+  records; `compare` puts two runs side by side. `--tpu_knn` initializes
+  the scales from ops/knn.knn_mean_sq_dist_bf16 and restores the exact
+  kNN after; `--bf16_grads` sums bfloat16-rounded entry gradients and
+  restores the segment sum after.
 - The CLI's block schedule ends a block at every densify iteration of
   the reference schedule (train_vanilla_3dgs.py: every 100 from 600 to
   10,900) with or without checkpoint iterations; JAX's rule, which the
@@ -119,6 +122,48 @@ def test_cli_densify_records_and_trace(tiny_scene, tmp_path, capsys):
     assert [row[0] for row in table] == [20, 40, 60]
     assert all(row[-1] == 1.0 for row in table)
     assert "a test psnr" in capsys.readouterr().out
+
+
+def test_trace_tpu_knn_initializes_from_the_tpu_distance(tiny_scene,
+                                                        tmp_path):
+    from wheat3dgs_tpu_torch.ops import knn as TK
+
+    tr = _trace_module()
+    pts = np.random.default_rng(3).uniform(-1, 1, (300, 3)).astype(
+        np.float32)
+    cols = np.full((300, 3), 0.5, np.float32)
+    with tr.tpu_knn("cpu"):
+        st = TG.create_from_pcd(pts, cols, 0, device="cpu")
+    want = np.log(np.sqrt(np.maximum(TK.knn_mean_sq_dist_bf16(pts), 1e-7)))
+    np.testing.assert_allclose(st.params.log_scales[:300, 0].numpy(), want,
+                               rtol=1e-6)
+    assert TG.knn_mean_sq_dist is TK.knn_mean_sq_dist
+    recs = tr.run(["--tpu_knn", "--", "-s", tiny_scene, "-m",
+                   str(tmp_path / "m"), "--device", "cpu", "--iterations",
+                   "20", "--densify_from_iter", "10",
+                   "--densification_interval", "20", "--test_iterations",
+                   "20", "--save_iterations", "20"])
+    assert sorted(recs) == [20]
+
+
+def test_trace_bf16_grads_rounds_the_entry_gradients(tiny_scene, tmp_path):
+    tr = _trace_module()
+    vals = torch.randn(40, 4, generator=torch.Generator().manual_seed(0))
+    start = torch.tensor([0, 7, 20], dtype=torch.int32)
+    end = torch.tensor([7, 20, 40], dtype=torch.int32)
+    segsum = CR.segsum
+    with tr.bf16_grads():
+        got = CR.segsum(vals, start, end)
+    assert CR.segsum is segsum
+    want = CR.segsum_plain(vals.to(torch.bfloat16).float(), start, end)
+    assert torch.equal(got, want)
+    assert not torch.equal(got, CR.segsum_plain(vals, start, end))
+    recs = tr.run(["--bf16_grads", "--", "-s", tiny_scene, "-m",
+                   str(tmp_path / "m"), "--device", "cpu", "--iterations",
+                   "20", "--densify_from_iter", "10",
+                   "--densification_interval", "20", "--test_iterations",
+                   "20", "--save_iterations", "20"])
+    assert sorted(recs) == [20]
 
 
 def test_plain_kernels_and_eager_steps_restore():

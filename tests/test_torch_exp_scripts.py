@@ -9,7 +9,10 @@ scripts/exp_seg_envelope.py.
   port's with `--device`; the JAX watchdog's training call becomes
   apps/train_vanilla with the watchdog's checkpoint cadence (and, when a
   checkpoint exists, --start_checkpoint on the latest one), and
-  metrics.py runs with the `auto:vgg` LPIPS stand-in.
+  metrics.py runs with the `auto:vgg` LPIPS stand-in. The port's
+  generator call passes COLOR_NOISE and KNN (0.15 and exact by default);
+  other values change those arguments only, and with the default SCENE
+  or MODEL the script exits non-zero before it runs anything.
 - exp_seg_envelope: the label-transfer scoring of the port's script and
   of the JAX script (--skip_train --skip_seg, SEG_SCENE / SEG_MODEL) on
   one tiny scene segmented by the port's run_3d_seg_app on the CPU:
@@ -37,12 +40,14 @@ def _cadence(iters, every=1000):
     return sorted(set(range(every, iters + 1, every)) | {iters})
 
 
-def _port_call(root_call, device, iters, resume):
+def _port_call(root_call, device, iters, resume, noise="0.15",
+               knn="exact"):
     argv = root_call["argv"]
     if argv == ["-"]:
         code = root_call["stdin"].replace(
             "from wheat3dgs_tpu.io", "from wheat3dgs_tpu_torch.io").replace(
-            "with_masks=False)", f'with_masks=False,\n    device="{device}")')
+            "with_masks=False)", f"with_masks=False,\n    color_noise={noise},"
+            f' knn="{knn}", device="{device}")')
         return {"argv": ["-"], "stdin": code}
     if argv[0] == "scripts/train_watchdog.py":
         extra = ["--checkpoint_iterations", *map(str, _cadence(iters))]
@@ -56,6 +61,17 @@ def _port_call(root_call, device, iters, resume):
                      *argv[1:], "--device", device]}
 
 
+def _saves(model, iters=(7000, 15000, 30000)):
+    """Stand-in saves for the renders to read (the port skips a save that
+    is missing)."""
+    for it in iters:
+        d = model / "point_cloud" / f"iteration_{it}"
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "point_cloud.ply").write_text(
+            "ply\nformat binary_little_endian 1.0\nelement vertex 5\n"
+            "end_header\n")
+
+
 @pytest.mark.parametrize("iters,checkpoint", [
     (None, None), ("3000", None), (None, 12000)])
 @pytest.mark.parametrize("device", ["cpu", None])
@@ -63,13 +79,7 @@ def test_port_exp_bench2_calls_match_root(tmp_path, iters, checkpoint,
                                           device):
     scene, model = str(tmp_path / "scene"), str(tmp_path / "model")
     n = int(iters or 30000)
-    # The saves the renders read (the port skips a save that is missing).
-    for it in (7000, 15000, n):
-        d = tmp_path / "model" / "point_cloud" / f"iteration_{it}"
-        d.mkdir(parents=True, exist_ok=True)
-        (d / "point_cloud.ply").write_text(
-            "ply\nformat binary_little_endian 1.0\nelement vertex 5\n"
-            "end_header\n")
+    _saves(tmp_path / "model", (7000, 15000, n))
     resume = None
     if checkpoint:
         for it in (checkpoint - 1000, checkpoint):
@@ -83,6 +93,55 @@ def test_port_exp_bench2_calls_match_root(tmp_path, iters, checkpoint,
                        [], **env | ({"DEVICE": device} if device else {}))
     assert len(root) == 6
     assert port == [_port_call(c, device or "cuda", n, resume) for c in root]
+
+
+@pytest.mark.parametrize("scene", [{"COLOR_NOISE": "0.05"},
+                                   {"KNN": "bfloat16"},
+                                   {"COLOR_NOISE": "0.05", "KNN": "bfloat16"}])
+def test_port_exp_bench2_scene_reaches_the_generator(tmp_path, scene):
+    env = {"SCENE": str(tmp_path / "scene"), "MODEL": str(tmp_path / "model")}
+    _saves(tmp_path / "model")
+    root = _run_logged(tmp_path, os.path.join(ROOT, "scripts",
+                                              "exp_bench2.sh"), [], **env)
+    port = _run_logged(tmp_path, os.path.join(PORT_SCRIPTS, "exp_bench2.sh"),
+                       [], **env, **scene)
+    assert port == [_port_call(c, "cuda", 30000, None,
+                               noise=scene.get("COLOR_NOISE", "0.15"),
+                               knn=scene.get("KNN", "exact"))
+                    for c in root]
+
+
+@pytest.mark.parametrize("scene", [{"COLOR_NOISE": "0.05"},
+                                   {"KNN": "bfloat16"}])
+@pytest.mark.parametrize("own", [(), ("SCENE",), ("MODEL",)])
+def test_port_exp_bench2_refuses_other_scene_on_default_dirs(tmp_path, own,
+                                                             scene):
+    """COLOR_NOISE=0.05 or KNN=bfloat16 with the default SCENE or MODEL
+    (which would reuse the default scene or model cached there): a
+    non-zero exit that names both variables, before any python call or
+    directory is made."""
+    bindir = tmp_path / "bin"
+    bindir.mkdir()
+    stub = bindir / "python"
+    stub.write_text(f"#!/bin/bash\necho called >> {tmp_path}/calls\n")
+    stub.chmod(0o755)
+    env = dict(os.environ, PATH=f"{bindir}:{os.environ['PATH']}",
+               **scene, **{k: str(tmp_path / k.lower()) for k in own})
+    for k in ("SCENE", "MODEL"):
+        if k not in own:
+            env.pop(k, None)
+    before = os.path.exists(os.path.join(ROOT, "output", "exp_bench2"))
+    out = subprocess.run(["bash", os.path.join(PORT_SCRIPTS,
+                                               "exp_bench2.sh")],
+                         cwd=tmp_path, env=env, capture_output=True,
+                         text=True, timeout=30)
+    assert out.returncode != 0
+    assert "SCENE" in out.stderr and "MODEL" in out.stderr
+    assert "color noise" not in out.stdout
+    assert not (tmp_path / "calls").exists()
+    assert sorted(os.listdir(tmp_path)) == ["bin"]
+    assert os.path.exists(os.path.join(ROOT, "output",
+                                       "exp_bench2")) == before
 
 
 def test_port_exp_bench2_parses():

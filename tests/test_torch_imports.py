@@ -168,6 +168,19 @@ def test_seg_and_probe_entry_points_refuse_without_card(tmp_path, app):
         mod.main(argv)
 
 
+@pytest.mark.parametrize("app", ["profile_render", "profile_train"])
+def test_profile_apps_refuse_without_card(tmp_path, app):
+    """The two profilers have no CPU mode: they raise before they write."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    import importlib
+
+    mod = importlib.import_module(f"wheat3dgs_tpu_torch.apps.{app}")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(["--out", str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists()
+
+
 @pytest.mark.parametrize("app", ["metrics_app", "render_360_app",
                                  "viewer_app"])
 def test_metrics_360_and_viewer_refuse_without_card(tmp_path, app):

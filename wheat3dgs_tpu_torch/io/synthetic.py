@@ -24,7 +24,7 @@ import os
 import numpy as np
 import torch
 
-from ..ops.knn import knn_mean_sq_dist
+from ..ops.knn import knn_mean_sq_dist, knn_mean_sq_dist_bf16
 from ..utils import graphics
 
 # The JAX generator's constants (wheat3dgs_tpu/io/synthetic.py).
@@ -34,12 +34,13 @@ FOV = 0.9
 
 
 def _scene_points(rng: np.random.Generator, n_heads: int, pts_per_head: int,
-                  ground_pts: int, head_centers=None):
+                  ground_pts: int, head_centers=None,
+                  color_noise: float = COLOR_NOISE):
     """Returns (points, colors, head_id) with head_id 0 = ground; the same
     draws, in the same order, as the JAX generator. head_centers: optional
     (n_heads, 2) xy positions in place of uniform-random ones (adjacent
-    heads on purpose)."""
-    color_noise = COLOR_NOISE
+    heads on purpose). color_noise: the ground colours' stddev; the heads'
+    is 0.8 of it."""
     pts, cols, hid = [], [], []
     g = np.stack([rng.uniform(-1.2, 1.2, ground_pts),
                   rng.uniform(-1.2, 1.2, ground_pts),
@@ -107,16 +108,28 @@ def _image_name(plot_id: int, i: int, n_cams: int) -> str:
 
 
 def gt_params(n_heads: int = 4, pts_per_head: int = 120,
-              ground_pts: int = 900, seed: int = 0, head_centers=None):
+              ground_pts: int = 900, seed: int = 0, head_centers=None,
+              color_noise: float = COLOR_NOISE, knn: str = "exact",
+              device="cpu"):
     """The generator's ground-truth scene: (rng, params dict of numpy
     GaussianParams fields, colors, head_id). Isotropic splats sized by the
     3-NN distance, opacity logit 4, SH degree 0 (colours are rendered as
-    override colours). The rng is returned for the draws that follow."""
+    override colours). The rng is returned for the draws that follow.
+    knn: "exact" (ops/knn.knn_mean_sq_dist), or "bfloat16", the distance
+    JAX's generator computes on a TPU (knn_mean_sq_dist_bf16, run on
+    `device`), where most splats of a dense plot get the 1e-4 floor."""
     rng = np.random.default_rng(seed)
     points, colors, head_id = _scene_points(rng, n_heads, pts_per_head,
-                                            ground_pts, head_centers)
+                                            ground_pts, head_centers,
+                                            color_noise)
     n = len(points)
-    dist = np.sqrt(np.maximum(knn_mean_sq_dist(points), 1e-12))
+    if knn == "exact":
+        d2 = knn_mean_sq_dist(points)
+    elif knn == "bfloat16":
+        d2 = knn_mean_sq_dist_bf16(points, device=device)
+    else:
+        raise ValueError(f"knn {knn!r}: 'exact' or 'bfloat16'")
+    dist = np.sqrt(np.maximum(d2, 1e-12))
     log_scales = np.log(np.clip(dist * SPLAT_SCALE, 1e-4, 0.1))
     quats = np.zeros((n, 4), np.float32)
     quats[:, 0] = 1.0
@@ -149,7 +162,8 @@ def cam_args(qvec, tvec, proj, fovx, fovy, device):
 
 def _build_gt_scene(width: int, height: int, n_cams: int, n_heads: int,
                     pts_per_head: int, ground_pts: int, seed: int, dev,
-                    cam_radius: float, cam_elev_deg, head_centers):
+                    cam_radius: float, cam_elev_deg, head_centers,
+                    color_noise: float = COLOR_NOISE, knn: str = "exact"):
     """The ground-truth scene shared by full synthesis and mask-only
     regeneration: (rng, params, colors, head_id, state, cameras, per-camera
     render arguments, focal length, raster config)."""
@@ -157,7 +171,8 @@ def _build_gt_scene(width: int, height: int, n_cams: int, n_heads: int,
     from ..render.pipeline import RasterConfig, adapt_config, inference_config
 
     rng, params, colors, head_id = gt_params(n_heads, pts_per_head,
-                                             ground_pts, seed, head_centers)
+                                             ground_pts, seed, head_centers,
+                                             color_noise, knn, dev)
     state = init_state(GaussianParams(**{
         k: torch.as_tensor(v, device=dev) for k, v in params.items()}),
         instance_id=head_id)
@@ -262,6 +277,8 @@ def make_synthetic_colmap_scene(
     head_centers=None,
     min_visibility: float = 0.35,
     min_mask_frac: float = 6e-4,
+    color_noise: float = COLOR_NOISE,
+    knn: str = "exact",
     device="cuda",
 ) -> dict:
     """Create the dataset on disk; returns a manifest dict. The COLMAP
@@ -270,7 +287,18 @@ def make_synthetic_colmap_scene(
     cameras sit on a ring of radius cam_radius at cam_elev_deg (one
     elevation, or one per ring row of 12); head_centers (n_heads, 2)
     places the heads; min_visibility / min_mask_frac gate each head's mask
-    (_write_view_masks)."""
+    (_write_view_masks).
+    color_noise and knn exist only to write the scenes JAX's generator
+    wrote on a TPU, on which JAX's tables were measured; JAX's writer
+    takes neither. color_noise is the per-point colour stddev
+    (_scene_points): JAX's exp_bench2 table (docs/REPORT.md) was taken at
+    commit 54bd0ea, when it was 0.05 (0.04 on the heads), and a later
+    commit raised it to 0.15 and changed nothing else the scene depends
+    on. knn="bfloat16" sizes the splats with the 3-NN distance as JAX's
+    generator computes it on a TPU (gt_params); JAX's on a CPU is the
+    exact one to float32 rounding. color_noise=0.05, knn="bfloat16" is the
+    scene of JAX's exp_bench2 table; the defaults write JAX's writer's
+    scene as a CPU computes it."""
     from PIL import Image
 
     from .. import resolve_device
@@ -281,7 +309,8 @@ def make_synthetic_colmap_scene(
     (rng, params, colors, head_id, state, cams, args, fx,
      config) = _build_gt_scene(width, height, n_cams, n_heads, pts_per_head,
                                ground_pts, seed, dev, cam_radius,
-                               cam_elev_deg, head_centers)
+                               cam_elev_deg, head_centers, color_noise,
+                               knn)
     n = len(colors)
     colors_cap = torch.zeros((state.capacity, 3), dtype=torch.float32,
                              device=dev)

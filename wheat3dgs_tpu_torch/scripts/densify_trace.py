@@ -2,7 +2,8 @@
 all-plain, and their comparison.
 
     python wheat3dgs_tpu_torch/scripts/densify_trace.py run [--plain]
-        [--eager] [--xla TILE] -- <apps.train_vanilla arguments>
+        [--eager] [--xla TILE] [--tpu_knn] [--bf16_grads] --
+        <apps.train_vanilla arguments>
     python wheat3dgs_tpu_torch/scripts/densify_trace.py compare
         NAME=MODEL/metrics.jsonl ...
 
@@ -19,6 +20,13 @@ place of the hand-written backward) with rungs that crop nothing:
 max_tiles_per_gauss (a power of two) and max_per_tile (a rung of
 {4, 5, 6, 7} * 2^k) are raised to the uncapped maxima over every train
 view at each probe, never lowered, and each densify record carries them.
+`--tpu_knn` initializes the splats' scales from points3D with the 3-NN
+distance as JAX's training computes it on a TPU
+(`ops/knn.knn_mean_sq_dist_bf16`, on the run's `--device`) in place of
+the exact one: what JAX's runs on a TPU started from. `--bf16_grads`
+rounds every entry's gradient row to bfloat16 before the per-splat
+segment sum (`cuda_raster.segsum`), as JAX's backward at commit 54bd0ea
+did (it sorted them packed as bfloat16 pairs).
 `compare` prints the runs' records side by side, one row per densify
 iteration, with the last run's n_alive relative to the first's.
 """
@@ -124,6 +132,34 @@ def no_crop_trainer(tile: int):
     return NoCropTrainer
 
 
+def tpu_knn(device):
+    """Model initialization (models/gaussians.create_from_pcd) sizes its
+    splats with the TPU's 3-NN distance while this is entered."""
+    from unittest import mock
+
+    from wheat3dgs_tpu_torch.models import gaussians
+    from wheat3dgs_tpu_torch.ops.knn import knn_mean_sq_dist_bf16
+
+    return mock.patch.object(
+        gaussians, "knn_mean_sq_dist",
+        lambda points, k=3: knn_mean_sq_dist_bf16(points, k, device=device))
+
+
+def bf16_grads():
+    """The backward's per-splat segment sum (cuda_raster.segsum) adds
+    entry gradient rows rounded to bfloat16 while this is entered."""
+    from unittest import mock
+
+    import torch
+
+    from wheat3dgs_tpu_torch.ops import cuda_raster
+
+    segsum = cuda_raster.segsum
+    return mock.patch.object(
+        cuda_raster, "segsum", lambda vals, start, end: segsum(
+            vals.to(torch.bfloat16).float(), start, end))
+
+
 def run(argv) -> dict:
     from wheat3dgs_tpu_torch.apps import train_vanilla
     from wheat3dgs_tpu_torch.ops import cuda_raster
@@ -133,6 +169,8 @@ def run(argv) -> dict:
     parser.add_argument("--plain", action="store_true")
     parser.add_argument("--eager", action="store_true")
     parser.add_argument("--xla", type=int, default=0, metavar="TILE")
+    parser.add_argument("--tpu_knn", action="store_true")
+    parser.add_argument("--bf16_grads", action="store_true")
     args, rest = parser.parse_known_args(argv)
     if rest and rest[0] == "--":
         rest = rest[1:]
@@ -146,11 +184,18 @@ def run(argv) -> dict:
 
             stack.enter_context(mock.patch.object(
                 train_vanilla, "Trainer", no_crop_trainer(args.xla)))
+        if args.tpu_knn:
+            stack.enter_context(tpu_knn(
+                rest[rest.index("--device") + 1] if "--device" in rest
+                else "cuda"))
+        if args.bf16_grads:
+            stack.enter_context(bf16_grads())
         trainer, scene = train_vanilla.main(rest + ["--quiet"])
     path = os.path.join(scene.model_path, "metrics.jsonl")
     recs = densify_records(path)
     print(f"densify records of {path} (plain={args.plain}, "
-          f"eager={args.eager}, xla={args.xla}):")
+          f"eager={args.eager}, xla={args.xla}, tpu_knn={args.tpu_knn}, "
+          f"bf16_grads={args.bf16_grads}):")
     fields = FIELDS + (XLA_FIELDS if args.xla else ())
     print("iter " + " ".join(fields))
     for it, r in sorted(recs.items()):

@@ -12,17 +12,40 @@
 # writes a checkpoint every 1000 iterations, and a rerun resumes from the
 # latest one (--start_checkpoint), so a cut run goes on where it stopped. Each stage prints its wall time, and each save its splat count.
 #
+# COLOR_NOISE (default 0.15, the generator's) is the synthesized scene's
+# per-point colour stddev, KNN (default exact) how its splats are sized
+# (io/synthetic.gt_params). JAX's table in docs/REPORT.md was measured on
+# the generator of commit 54bd0ea, whose noise was 0.05, run on a TPU,
+# whose kNN is KNN=bfloat16: COLOR_NOISE=0.05 KNN=bfloat16 writes that
+# scene. A scene already under SCENE is reused whatever it was made with,
+# so any other COLOR_NOISE or KNN needs a SCENE and a MODEL of its own; the
+# script refuses it with the default ones.
+#
 # Usage: [DEVICE=cuda|cpu] [SCENE=dir] [MODEL=dir] [ITERS=30000] \
+#   [COLOR_NOISE=0.15] [KNN=exact|bfloat16] \
 #   bash wheat3dgs_tpu_torch/scripts/exp_bench2.sh
 set -euo pipefail
 ROOT=$(cd "$(dirname "${BASH_SOURCE[0]}")/../.." && pwd)
 export PYTHONPATH="$ROOT${PYTHONPATH:+:$PYTHONPATH}"
 APPS=wheat3dgs_tpu_torch.apps
 
-SCENE=${SCENE:-$ROOT/output/exp_bench2/scene}
-MODEL=${MODEL:-$ROOT/output/exp_bench2/model}
+DEFAULT_SCENE=$ROOT/output/exp_bench2/scene
+DEFAULT_MODEL=$ROOT/output/exp_bench2/model
+SCENE=${SCENE:-$DEFAULT_SCENE}
+MODEL=${MODEL:-$DEFAULT_MODEL}
 ITERS=${ITERS:-30000}
 DEVICE=${DEVICE:-cuda}
+COLOR_NOISE=${COLOR_NOISE:-0.15}
+KNN=${KNN:-exact}
+if { [ "$COLOR_NOISE" != 0.15 ] || [ "$KNN" != exact ]; } \
+    && { [ "$SCENE" = "$DEFAULT_SCENE" ] || [ "$MODEL" = "$DEFAULT_MODEL" ]; }
+then
+  echo "exp_bench2: COLOR_NOISE=$COLOR_NOISE KNN=$KNN needs its own SCENE" \
+    "and MODEL (the defaults, $DEFAULT_SCENE and $DEFAULT_MODEL, hold the" \
+    "scene of COLOR_NOISE=0.15 KNN=exact and its model)" >&2
+  exit 2
+fi
+echo "color noise: $COLOR_NOISE, knn: $KNN"
 
 T0=$(date +%s)
 if [ ! -f "$SCENE/sparse/0/points3D.bin" ]; then
@@ -31,7 +54,7 @@ from wheat3dgs_tpu_torch.io.synthetic import make_synthetic_colmap_scene
 make_synthetic_colmap_scene(
     "$SCENE", width=1600, height=1200, n_cams=36, n_heads=32,
     pts_per_head=3000, ground_pts=104000, seed=0, with_masks=False,
-    device="$DEVICE")
+    color_noise=$COLOR_NOISE, knn="$KNN", device="$DEVICE")
 EOF
 fi
 T1=$(date +%s)
