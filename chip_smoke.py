@@ -198,7 +198,22 @@ when run outside a checkout of the repo. Phases, each reported on a line:
    camera, the 0.05 scene's two statistics are nearer JAX's render than
    the 0.15 scene's, and the TPU kNN's 0.05 scene has a higher PSNR
    against it than the exact kNN's;
-24. a `kernels` JSON line, then the device line last.
+24. the envelope chain: `wheat3dgs_tpu_torch/scripts/exp_round5_final.sh`
+   at a dwarfed envelope (CHAIN_ENV: 6 heads x 800 + 8,000 ground, 12
+   views at 400x300) on the numerics of JAX's band (the TPU kNN's scene
+   and start, bfloat16 entry gradients, split-noise seed 1), the scene
+   synthesized in this process and training's first leg to CHAIN_SAVES[0]
+   through tpu_numerics.py, the chain resuming it to CHAIN_SAVES[1], then
+   `diag_psnr_decline.py` over both saves, every `python` through the
+   step runner, the launch counters reset just before: each step exits 0
+   (but the chain's first scoring, which has no segmentation yet, as the
+   JAX chain's), the envelope report's keys are JAX's with n_discovered
+   >= 1, morph_compare.json has n_pairs, the 360 videos and traits are
+   written, the diag's rows of both splits sit at demand / budget <= 1,
+   every kernel of the path is launched; then one lift of the chain's
+   model passes segsum only bfloat16-exact rows under bf16_grads (and
+   not without);
+25. a `kernels` JSON line, then the device line last.
 Work files go to `_smoke_work/` in the checkout and are removed on success.
 """
 
@@ -363,6 +378,20 @@ REFERENCE_GTS = {"0.05": (0.05, "exact"), "0.15": (0.15, "exact"),
 REFERENCE_CAMS = (10, 11, 22)
 BENCH_KEYS = ["metric", "value", "unit", "vs_baseline", "mean_ms",
               "median_ms", "n_splats", "render_fps"]
+# Phase 24, the envelope chain: exp_round5_final.sh at a dwarfed envelope
+# on the numerics of JAX's band (the TPU kNN's scene and start, bfloat16
+# entry gradients, split-noise seed 1), its training in two legs so that
+# diag_psnr_decline.py has two saves; the envelope report's keys (JAX's
+# scripts/exp_seg_envelope.py's) and the chain's files.
+CHAIN_ENV = {"SEG_W": "400", "SEG_H": "300", "SEG_CAMS": "12",
+             "SEG_HEADS": "6", "SEG_PTS": "800", "SEG_GROUND": "8000",
+             "FRAMES": "8", "HEAD_FRAMES": "4", "SEG_KNN": "bfloat16",
+             "SEG_BF16_GRADS": "1", "SEG_SEED": "1"}
+CHAIN_SAVES = (300, 600)
+ENVELOPE_KEYS = ["n_gt_heads", "n_discovered", "n_ply_files",
+                 "counting_accuracy", "n_matched_gt", "duplicate_id_count",
+                 "metric", "mean_iou", "mean_precision", "mean_recall",
+                 "mean_splat_purity", "seg_wall_s", "note", "per_head"]
 # cuda_time_ms, bound, fwd_bound and smi_line are bound in main(), from the
 # port's utils/cuda_timing, once the port is found next to this script.
 
@@ -2131,29 +2160,48 @@ def _xlsx_rows(path: str) -> list:
 
 
 # The step runner the pipeline scripts' `python` calls go through: it runs
-# the module (or stdin's program) as python would, and appends the step's
-# seconds and the port's kernel launches in that process to a log.
+# the module (or stdin's program, or a script by path) as python would, and
+# appends the step's seconds, the port's kernel launches in that process
+# and its exit status to a log. With SMOKE_SHIM set, sys.executable is that
+# shim, so a step's own `sys.executable` subprocesses are logged too.
 STEP_RUNNER = """import atexit, json, os, runpy, sys, time
 t0 = time.perf_counter()
 argv = sys.argv[1:]
+status = [None]
 
 def record():
     mod = sys.modules.get("wheat3dgs_tpu_torch.ops.cuda_build")
     rec = {"argv": argv, "seconds": time.perf_counter() - t0,
-           "launches": dict(mod.launches) if mod else {}}
+           "launches": dict(mod.launches) if mod else {},
+           "exit": status[0]}
     with open(os.environ["SMOKE_STEP_LOG"], "a") as f:
         f.write(json.dumps(rec) + "\\n")
 
 atexit.register(record)
-if argv[:1] == ["-m"]:
-    sys.argv = argv[1:]
-    runpy.run_module(argv[1], run_name="__main__", alter_sys=True)
-elif argv == ["-"]:
-    sys.argv = ["-"]
-    exec(compile(sys.stdin.read(), "<stdin>", "exec"),
-         {"__name__": "__main__"})
-else:
-    sys.exit(f"unexpected python call: {argv}")
+if os.environ.get("SMOKE_SHIM"):
+    sys.executable = os.environ["SMOKE_SHIM"]
+try:
+    if argv[:1] == ["-m"]:
+        sys.argv = argv[1:]
+        runpy.run_module(argv[1], run_name="__main__", alter_sys=True)
+    elif argv == ["-"]:
+        sys.argv = ["-"]
+        exec(compile(sys.stdin.read(), "<stdin>", "exec"),
+             {"__name__": "__main__"})
+    elif argv and argv[0].endswith(".py"):
+        sys.argv = argv
+        sys.path.insert(0, os.path.dirname(os.path.abspath(argv[0])))
+        runpy.run_path(argv[0], run_name="__main__")
+    else:
+        sys.exit(f"unexpected python call: {argv}")
+    status[0] = 0
+except SystemExit as e:
+    status[0] = e.code if isinstance(e.code, int) else (
+        0 if e.code is None else 1)
+    raise
+except BaseException:
+    status[0] = 1
+    raise
 """
 
 
@@ -2177,6 +2225,15 @@ def run_script(script: str, args: list, env: dict, log_name: str) -> dict:
     """Run one of the port's pipeline scripts under bash with `python` on
     PATH going through STEP_RUNNER; its steps (argv, seconds, launches),
     exit code and seconds. Its output goes to WORK/<log_name>."""
+    return run_logged(["bash", os.path.join(ROOT, "wheat3dgs_tpu_torch",
+                                            "scripts", script), *args],
+                      env, log_name)
+
+
+def run_logged(cmd: list, env: dict, log_name: str) -> dict:
+    """Run `cmd` with `python` on PATH going through STEP_RUNNER (a
+    leading "python" names the shim); its steps, seconds and launches as
+    run_script's. Fails if it exits non-zero."""
     import subprocess
 
     from wheat3dgs_tpu_torch.ops import cuda_raster as CR
@@ -2187,27 +2244,28 @@ def run_script(script: str, args: list, env: dict, log_name: str) -> dict:
         os.remove(step_log)
     full = dict(os.environ, PATH=f"{bindir}:{os.environ.get('PATH', '')}",
                 SMOKE_STEP_LOG=step_log, **env)
+    if cmd[0] == "python":
+        cmd = [os.path.join(bindir, "python"), *cmd[1:]]
     out_path = os.path.join(WORK, log_name)
     t0 = time.perf_counter()
     with open(out_path, "w") as out:
-        proc = subprocess.run(
-            ["bash", os.path.join(ROOT, "wheat3dgs_tpu_torch", "scripts",
-                                  script), *args],
-            cwd=ROOT, env=full, stdout=out, stderr=subprocess.STDOUT,
-            timeout=SCRIPT_TIMEOUT)
+        proc = subprocess.run(cmd, cwd=ROOT, env=full, stdout=out,
+                              stderr=subprocess.STDOUT,
+                              timeout=SCRIPT_TIMEOUT)
     seconds = time.perf_counter() - t0
     steps = []
     if os.path.exists(step_log):
         steps = [json.loads(ln) for ln in open(step_log)]
     if proc.returncode != 0:
         tail = open(out_path).read()[-3000:]
-        fail(f"{script} exited {proc.returncode} after {len(steps)} steps "
-             f"({[st['argv'][:2] for st in steps]}):\n{tail}")
+        fail(f"{os.path.basename(cmd[1])} exited {proc.returncode} after "
+             f"{len(steps)} steps ({[st['argv'][:2] for st in steps]}):\n"
+             f"{tail}")
     launches = {k: sum(st["launches"].get(k, 0) for st in steps)
                 for k in CR.KERNELS + ("scan_probe",)}
     return dict(seconds=seconds, launches=launches,
                 steps=[{"step": " ".join(st["argv"][:2]),
-                        "seconds": st["seconds"],
+                        "seconds": st["seconds"], "exit": st["exit"],
                         "launches": st["launches"]} for st in steps])
 
 
@@ -3390,6 +3448,164 @@ def check_probe() -> dict:
                        "edge_steps": edge_steps})
 
 
+def _load_script(name: str):
+    """One of the port's scripts (wheat3dgs_tpu_torch/scripts/ has no
+    package), loaded by path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"smoke_{name}", os.path.join(ROOT, "wheat3dgs_tpu_torch", "scripts",
+                                      f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def envelope_chain() -> dict:
+    """Phase 24: the envelope chain on the card at CHAIN_ENV. The scene
+    synthesized in this process (exp_seg_envelope.synthesize, the TPU kNN's
+    ground truth), training to CHAIN_SAVES[0] through tpu_numerics.py
+    (--tpu_knn --bf16_grads --seed), exp_round5_final.sh with ITERS =
+    CHAIN_SAVES[1] (training resumes from the first leg's checkpoint), then
+    diag_psnr_decline.py over both saves, every `python` through
+    STEP_RUNNER with the launch counters of this process reset just before:
+    each command exits 0, the envelope report has JAX's keys, its note the
+    numerics, and n_discovered >= 1, morph_compare.json has n_pairs, the
+    360 videos and the traits are written, the diag prints a row of both
+    splits for each save at demand / budget <= 1, and each of the path's
+    kernels is launched. Then, apart from the count, one lift of the
+    chain's model under tpu_numerics.bf16_grads: every segsum input it
+    passes is bfloat16-exact (and without it, not)."""
+    import ast
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from wheat3dgs_tpu_torch import config as cfg
+    from wheat3dgs_tpu_torch.ops import cuda_raster as CR
+    from wheat3dgs_tpu_torch.render.pipeline import adapt_config
+    from wheat3dgs_tpu_torch.scene import Scene
+    from wheat3dgs_tpu_torch.seg import flashsplat
+    from wheat3dgs_tpu_torch.utils import image_ops
+
+    t_start = time.perf_counter()
+    env_mod = _load_script("exp_seg_envelope")
+    numerics = _load_script("tpu_numerics")
+    scene_dir = os.path.join(WORK, "chain_scene")
+    model_dir = os.path.join(WORK, "chain_model")
+    env = dict(CHAIN_ENV, SEG_SCENE=scene_dir, SEG_MODEL=model_dir,
+               DEVICE=DEVICE, SMOKE_SHIM=os.path.join(step_runner(),
+                                                      "python"),
+               PYTHONPATH=os.pathsep.join(
+                   [ROOT] + ([os.environ["PYTHONPATH"]]
+                             if os.environ.get("PYTHONPATH") else [])))
+    s = env_mod.settings(env)
+    num = env_mod.numerics(s)
+    CR.reset_launches()
+    t0 = time.perf_counter()
+    env_mod.synthesize(s, DEVICE)
+    synth_seconds = time.perf_counter() - t0
+    synth_launches = dict(CR.launches)
+    first = env_mod.train_cmd(scene_dir, model_dir, CHAIN_SAVES[0], DEVICE,
+                              num)
+    leg = run_logged(["python", *first[1:]], env, "chain_leg1.log")
+    chain = run_logged(
+        ["bash", os.path.join(ROOT, "wheat3dgs_tpu_torch", "scripts",
+                              "exp_round5_final.sh")],
+        dict(env, ITERS=str(CHAIN_SAVES[1])), "chain.log")
+    diag = run_logged(
+        ["python", os.path.join(ROOT, "wheat3dgs_tpu_torch", "scripts",
+                                "diag_psnr_decline.py"), "-m", model_dir,
+         "--iterations", *map(str, CHAIN_SAVES), "--device", DEVICE],
+        env, "chain_diag.log")
+    launches = {k: synth_launches.get(k, 0) + leg["launches"][k]
+                + chain["launches"][k] + diag["launches"][k]
+                for k in CR.KERNELS}
+    for k in CR.KERNELS:
+        if launches[k] <= 0:
+            fail(f"phase 24: kernel {k} was not launched on the chain")
+    # The chain's step 1 scores before any segmentation exists and exits
+    # non-zero, as the JAX chain's does (`|| true`); every other step 0.
+    steps = leg["steps"] + chain["steps"] + diag["steps"]
+    if any(st["exit"] != 0 and not st["step"].endswith(
+            "exp_seg_envelope.py --skip_seg") for st in steps):
+        fail(f"phase 24: steps exited "
+             f"{[(st['step'], st['exit']) for st in steps]}")
+
+    exp_dir = os.path.join(model_dir, "wheat-head", "envelope")
+    with open(os.path.join(exp_dir, "envelope_report.json")) as f:
+        report = json.load(f)
+    if list(report) != ENVELOPE_KEYS or report["n_discovered"] < 1 \
+            or "tpu_numerics" not in (report["note"] or ""):
+        fail(f"phase 24: envelope report {list(report)}, n_discovered "
+             f"{report.get('n_discovered')}, note {report.get('note')}")
+    with open(os.path.join(exp_dir, "morph_compare.json")) as f:
+        morph = json.load(f)
+    if "n_pairs" not in morph:
+        fail(f"phase 24: morph_compare.json lacks n_pairs: {list(morph)}")
+    videos = sorted(os.listdir(os.path.join(exp_dir, "wheat_head_360")))
+    traits = [f for f in os.listdir(os.path.join(
+        exp_dir, "morph_envelope_results")) if f.endswith("_traits.xlsx")]
+    if not os.path.exists(os.path.join(exp_dir, "wheat_field_360.mp4")) \
+            or not videos or len(traits) != 1:
+        fail(f"phase 24: {len(videos)} head videos, {len(traits)} traits "
+             "workbooks, field video "
+             f"{os.path.exists(os.path.join(exp_dir, 'wheat_field_360.mp4'))}")
+    rows = [ast.literal_eval(ln) for ln in open(os.path.join(
+        WORK, "chain_diag.log")) if ln.startswith("{'iteration'")]
+    if [r["iteration"] for r in rows] != list(CHAIN_SAVES) or any(
+            not np.isfinite(r[f"{sp}_psnr"])
+            or r[f"{sp}_demand_over_budget"] > 1.0
+            for r in rows for sp in ("train", "test")):
+        fail(f"phase 24: diag rows {rows}")
+
+    # One lift of the chain's model, its segsum inputs recorded.
+    scene = Scene(cfg.ModelParams(source_path=scene_dir,
+                                  model_path=model_dir),
+                  load_iteration=-1, device=DEVICE)
+    w, h = scene.image_size
+    cams = [scene.cam_arrays("train", i)
+            for i in range(len(scene.data.train))]
+    config = adapt_config(scene.gaussians, cams[0], w, h, cams=cams)
+    paths = scene.data.train.metas[0].mask_paths or []
+    planes = [image_ops.read_mask(p, (w, h)) for p in paths[:7]]
+    planes.append(np.ones((h, w), bool))
+    planes += [np.zeros((h, w), bool)] * (8 - len(planes))
+    bits8 = torch.as_tensor(np.stack([np.packbits(r, axis=None)
+                                      for r in planes]), device=DEVICE)
+    segsum = CR.segsum
+    exact = {}
+    for rounded in (True, False):
+        seen = []
+
+        def recording(vals, start, end):
+            seen.append(bool(torch.equal(
+                vals, vals.to(torch.bfloat16).float())))
+            return segsum(vals, start, end)
+
+        with mock.patch.object(CR, "segsum", recording), (
+                numerics.bf16_grads() if rounded
+                else contextlib.nullcontext()):
+            flashsplat.lift_batch8(scene.gaussians, *cams[0], bits8,
+                                   width=w, height=h, config=config)
+        exact[rounded] = seen
+    if not exact[True] or not all(exact[True]) or all(exact[False]):
+        fail(f"phase 24: segsum inputs bfloat16-exact under bf16_grads "
+             f"{exact[True]}, without {exact[False]}")
+    return dict(seconds=time.perf_counter() - t_start,
+                synth_seconds=synth_seconds, leg_seconds=leg["seconds"],
+                chain_seconds=chain["seconds"],
+                diag_seconds=diag["seconds"], launches=launches,
+                steps=[(st["step"], round(st["seconds"], 2), st["exit"])
+                       for st in steps],
+                report={k: v for k, v in report.items() if k != "per_head"},
+                morph={k: v for k, v in morph.items() if k != "rows"},
+                diag=rows, head_videos=len(videos),
+                splats=int(scene.gaussians.num_alive),
+                lift_segsum_bf16_exact=exact)
+
+
 def main() -> None:
     try:
         import torch
@@ -3663,6 +3879,21 @@ def main() -> None:
             for x, b in rs["builds"].items())
         + f"; {rs['seconds']:.1f} s; {smi}", flush=True)
 
+    # 24. the envelope chain on the band's numerics, then the diag
+    ec = envelope_chain()
+    say("envelope_chain", **ec)
+    rep, diag = ec["report"], ec["diag"]
+    print(f"envelope chain: {ec['seconds']:.1f} s (synthesis "
+          f"{ec['synth_seconds']:.1f}, first leg {ec['leg_seconds']:.1f}, "
+          f"exp_round5_final.sh {ec['chain_seconds']:.1f}, diag "
+          f"{ec['diag_seconds']:.1f}); {rep['n_discovered']} ids, IoU "
+          f"{rep['mean_iou']:.3f}, purity {rep['mean_splat_purity']:.3f}, "
+          f"{ec['morph']['n_pairs']} trait pairs, {ec['head_videos']} head "
+          f"videos, {ec['splats']} splats; diag " + ", ".join(
+              f"{r['iteration']}: train {r['train_psnr']:.2f} / test "
+              f"{r['test_psnr']:.2f} dB" for r in diag)
+          + f"; launches {ec['launches']}; {smi}", flush=True)
+
     src = "wheat3dgs_tpu_torch/csrc/"
     tpu = "wheat3dgs_tpu/ops/pallas_raster.py:"
     keys = ("value_rows", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -3696,7 +3927,8 @@ def main() -> None:
                          "multi_plot": mpp["launches"][name],
                          "bench": bp["launches"].get(name, 0),
                          "distributed": dp["launches"][name],
-                         "reference_scene": rs["launches"][name]},
+                         "reference_scene": rs["launches"][name],
+                         "envelope_chain": ec["launches"][name]},
                      "segmentation_shapes": [
                          {k: x.get(k) for k in keys} for x in shapes]})
     # The probe's row: the cumsum kind (torch.cumsum computes the same

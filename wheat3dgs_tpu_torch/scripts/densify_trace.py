@@ -26,7 +26,8 @@ distance as JAX's training computes it on a TPU
 the exact one: what JAX's runs on a TPU started from. `--bf16_grads`
 rounds every entry's gradient row to bfloat16 before the per-splat
 segment sum (`cuda_raster.segsum`), as JAX's backward at commit 54bd0ea
-did (it sorted them packed as bfloat16 pairs).
+did (it sorted them packed as bfloat16 pairs). Both patches are
+tpu_numerics.py's.
 `compare` prints the runs' records side by side, one row per densify
 iteration, with the last run's n_alive relative to the first's.
 """
@@ -41,6 +42,9 @@ from argparse import ArgumentParser
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", ".."))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from tpu_numerics import bf16_grads, tpu_knn  # noqa: E402
 
 FIELDS = ("n_clone", "n_split", "n_pruned_opacity", "n_pruned", "n_alive",
           "entry_budget", "entries_total", "overflow_events")
@@ -130,34 +134,6 @@ def no_crop_trainer(tile: int):
             self._occupancy_due = False
 
     return NoCropTrainer
-
-
-def tpu_knn(device):
-    """Model initialization (models/gaussians.create_from_pcd) sizes its
-    splats with the TPU's 3-NN distance while this is entered."""
-    from unittest import mock
-
-    from wheat3dgs_tpu_torch.models import gaussians
-    from wheat3dgs_tpu_torch.ops.knn import knn_mean_sq_dist_bf16
-
-    return mock.patch.object(
-        gaussians, "knn_mean_sq_dist",
-        lambda points, k=3: knn_mean_sq_dist_bf16(points, k, device=device))
-
-
-def bf16_grads():
-    """The backward's per-splat segment sum (cuda_raster.segsum) adds
-    entry gradient rows rounded to bfloat16 while this is entered."""
-    from unittest import mock
-
-    import torch
-
-    from wheat3dgs_tpu_torch.ops import cuda_raster
-
-    segsum = cuda_raster.segsum
-    return mock.patch.object(
-        cuda_raster, "segsum", lambda vals, start, end: segsum(
-            vals.to(torch.bfloat16).float(), start, end))
 
 
 def run(argv) -> dict:
