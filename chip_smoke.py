@@ -213,7 +213,28 @@ when run outside a checkout of the repo. Phases, each reported on a line:
    every kernel of the path is launched; then one lift of the chain's
    model passes segsum only bfloat16-exact rows under bf16_grads (and
    not without);
-25. a `kernels` JSON line, then the device line last.
+25. the bf16 replay: composite_bwd's BF16 build (cuda_raster's bf16_ops,
+   scripts/tpu_numerics.py's bf16_replay(): JAX's TPU rounding of the
+   replay's three products) on train view 0 of the stand-in model, at 4
+   value rows under the L1 + SSIM loss on a grey background (so that the
+   weight-sum row's float32 route is exercised) and at the lift's 9 rows:
+   against the flagged plain replay within the default pair's bound and,
+   in relative L2, at most BF16_SHARE of the distance of each plain
+   replay that rounds other terms (none, the weight-sum row's cotangent,
+   the image rows of A), two launches bit-identical, its rows different
+   from the default build's, timed in
+   turns with it, every BF16 instantiation's ptxas line without spills;
+   under the patch the end-to-end gradients within 2% of the all-plain
+   path's, and a Trainer built inside it replaying a BF16_BLOCK-step
+   block from a CUDA graph that launches the BF16 build once a step and
+   the default build never; no default path launched the BF16 build;
+26. the root tools without a card's work (A14): the port's
+   summarize_results.py over a plot_* layout made from phase 12's
+   results.json and apps/vis_cam on the bench scene's sparse/0, each as a
+   process in which pandas and matplotlib cannot be imported: the CSVs'
+   rows against the file's numbers, the PNG decoded with both splits'
+   colours in it;
+27. a `kernels` JSON line, then the device line last.
 Work files go to `_smoke_work/` in the checkout and are removed on success.
 """
 
@@ -388,6 +409,18 @@ CHAIN_ENV = {"SEG_W": "400", "SEG_H": "300", "SEG_CAMS": "12",
              "FRAMES": "8", "HEAD_FRAMES": "4", "SEG_KNN": "bfloat16",
              "SEG_BF16_GRADS": "1", "SEG_SEED": "1"}
 CHAIN_SAVES = (300, 600)
+# Phase 25: the steps of the block a Trainer built under bf16_replay runs.
+BF16_BLOCK = 4
+# Phase 25: the BF16 build's rows against the flagged plain replay, in
+# relative L2 (||kernel - plain|| / ||plain||), at most this share of the
+# distance from the flagged plain replay to each plain replay that rounds
+# other terms: a build that rounded as one of them would fail. At 4 rows
+# the nearest is the one that also rounds the weight-sum row's cotangent
+# (3.41e-5 against the build's 1.65e-6, H100, BF16_BG).
+BF16_SHARE = 0.1
+# Phase 25's background, not black, so that the weight-sum row (JAX's
+# float32 a2 / T_final route) has a cotangent.
+BF16_BG = (0.25, 0.5, 0.75)
 ENVELOPE_KEYS = ["n_gt_heads", "n_discovered", "n_ply_files",
                  "counting_accuracy", "n_matched_gt", "duplicate_id_count",
                  "metric", "mean_iou", "mean_precision", "mean_recall",
@@ -678,6 +711,31 @@ def check_segsum(rows, plan, where: str) -> dict:
     return seg
 
 
+def view_stream(scene, cam, budget: int, colors=None):
+    """The entry stream of one view of the scene's model at `budget`, with
+    no gradient: (plan, alive, skeys, starts, ends, perm, feat) with the
+    model's SH colours, or with `colors` (N, C) in their place."""
+    import torch
+
+    from wheat3dgs_tpu_torch.ops import cuda_raster as CR
+    from wheat3dgs_tpu_torch.ops.projection import project_gaussians
+
+    st = scene.gaussians
+    w, h = scene.image_size
+    kw = (dict(sh=st.sh(), sh_degree=scene.sh_degree) if colors is None
+          else dict(colors=colors))
+    with torch.no_grad():
+        splats = project_gaussians(
+            st.params.means, st.scales(), st.params.quats, st.opacity(),
+            *cam, w, h, **kw)
+        plan = CR.alloc_prologue(splats, w, h, budget)
+        key, alive = CR.decode_cull(plan)
+        skeys, starts, ends, perm = CR.sorted_stream(
+            key, plan.t_total, plan.rank_bits, with_perm=True)
+        feat = CR.entry_features(splats, plan.order, True, True)
+    return plan, alive, skeys, starts, ends, perm, feat
+
+
 def check_train_kernels(scene):
     """Phase 6: the training kernels against their plain versions on train
     view 0 of the stand-in model, under the L1 + SSIM loss."""
@@ -689,7 +747,6 @@ def check_train_kernels(scene):
     from wheat3dgs_tpu_torch.ops import cuda_raster as CR
     from wheat3dgs_tpu_torch.ops.binning import pick_entry_budget
     from wheat3dgs_tpu_torch.ops.losses import photometric_loss
-    from wheat3dgs_tpu_torch.ops.projection import project_gaussians
     from wheat3dgs_tpu_torch.render.pipeline import (RasterConfig,
                                                      entry_demand_probe,
                                                      render)
@@ -702,15 +759,8 @@ def check_train_kernels(scene):
     # The entry budget the trainer's ladder picks for this view.
     budget = pick_entry_budget(int(entry_demand_probe(
         st, *cam, width=w, height=h)))
-    with torch.no_grad():
-        splats = project_gaussians(
-            st.params.means, st.scales(), st.params.quats, st.opacity(),
-            *cam, w, h, sh=st.sh(), sh_degree=scene.sh_degree)
-        plan = CR.alloc_prologue(splats, w, h, budget)
-        key, alive = CR.decode_cull(plan)
-        skeys, starts, ends, perm = CR.sorted_stream(
-            key, plan.t_total, plan.rank_bits, with_perm=True)
-        feat = CR.entry_features(splats, plan.order, True, True)
+    plan, alive, skeys, starts, ends, perm, feat = view_stream(scene, cam,
+                                                               budget)
     nv = feat.shape[1] - 6
     cols = 6 + nv
     e = skeys.shape[0]
@@ -1208,7 +1258,6 @@ def check_seg_kernels(scene, scene_dir: str):
     import torch
 
     from wheat3dgs_tpu_torch.ops import cuda_raster as CR
-    from wheat3dgs_tpu_torch.ops.projection import project_gaussians
     from wheat3dgs_tpu_torch.render.pipeline import (adapt_config,
                                                      subset_stream)
     from wheat3dgs_tpu_torch.seg import flashsplat
@@ -1232,15 +1281,8 @@ def check_seg_kernels(scene, scene_dir: str):
     bits8 = torch.as_tensor(np.stack([np.packbits(r, axis=None)
                                       for r in rows]), device=DEVICE)
 
-    with torch.no_grad():
-        splats = project_gaussians(
-            st.params.means, st.scales(), st.params.quats, st.opacity(),
-            *cam, w, h, colors=torch.zeros((st.capacity, 8), device=DEVICE))
-        plan = CR.alloc_prologue(splats, w, h, budget)
-        key, alive = CR.decode_cull(plan)
-        skeys, starts, ends, perm = CR.sorted_stream(
-            key, plan.t_total, plan.rank_bits, with_perm=True)
-        feat = CR.entry_features(splats, plan.order, True, True)
+    plan, alive, skeys, starts, ends, perm, feat = view_stream(
+        scene, cam, budget, torch.zeros((st.capacity, 8), device=DEVICE))
     nv = feat.shape[1] - 6
     if nv != 9:
         fail(f"the lift composites {nv} value rows, expected 9")
@@ -2262,7 +2304,7 @@ def run_logged(cmd: list, env: dict, log_name: str) -> dict:
              f"{len(steps)} steps ({[st['argv'][:2] for st in steps]}):\n"
              f"{tail}")
     launches = {k: sum(st["launches"].get(k, 0) for st in steps)
-                for k in CR.KERNELS + ("scan_probe",)}
+                for k in CR.launches}
     return dict(seconds=seconds, launches=launches,
                 steps=[{"step": " ".join(st["argv"][:2]),
                         "seconds": st["seconds"], "exit": st["exit"],
@@ -2879,7 +2921,7 @@ def dist_meshes(ranks, scene_dir: str) -> dict:
             ms.append(m)
         sync()
         seconds = time.perf_counter() - t0
-        launches = {k: CR.launches[k] for k in CR.KERNELS}
+        launches = dict(CR.launches)
         ref_step = TT.multi_plot_step(3, w, h, opt)
         ref = G.map_tensors(torch.clone, states)
         refs = []
@@ -2996,7 +3038,7 @@ def dist_path(scene_dir: str) -> dict:
             fail(f"distributed phase: rank {r}:\n{res['error']}")
         ranks.append(res)
     launches = {k: sum(m["launches"][k] for res in ranks
-                       for m in res["meshes"]) for k in CR.KERNELS}
+                       for m in res["meshes"]) for k in CR.launches}
     return dict(seconds=time.perf_counter() - t0, ranks=ranks,
                 launches=launches)
 
@@ -3519,9 +3561,9 @@ def envelope_chain() -> dict:
                                 "diag_psnr_decline.py"), "-m", model_dir,
          "--iterations", *map(str, CHAIN_SAVES), "--device", DEVICE],
         env, "chain_diag.log")
-    launches = {k: synth_launches.get(k, 0) + leg["launches"][k]
+    launches = {k: synth_launches[k] + leg["launches"][k]
                 + chain["launches"][k] + diag["launches"][k]
-                for k in CR.KERNELS}
+                for k in CR.launches}
     for k in CR.KERNELS:
         if launches[k] <= 0:
             fail(f"phase 24: kernel {k} was not launched on the chain")
@@ -3604,6 +3646,335 @@ def envelope_chain() -> dict:
                 diag=rows, head_videos=len(videos),
                 splats=int(scene.gaussians.num_alive),
                 lift_segsum_bf16_exact=exact)
+
+
+def ptxas_report(log: str) -> dict:
+    """nvcc's -Xptxas -v report per kernel instantiation: {(kernel, value
+    rows, flag): {"registers", "spill_stores", "spill_loads"}} for the
+    entry functions whose mangled names carry `<int, bool>` arguments
+    (composite_bwd_kernel<NV, BF16>)."""
+    import re
+
+    out, key = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?(\w{3}_kernel)"
+                      r"ILi(\d+)ELb([01])E", ln)
+        if m:
+            key = (m.group(1), int(m.group(2)), bool(int(m.group(3))))
+            out[key] = {}
+            continue
+        if key is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            out[key]["spill_stores"] = int(m.group(1))
+            out[key]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[key]["registers"] = int(m.group(1))
+    return out
+
+
+def bf16_replay_path(scene_dir: str, model_dir: str) -> dict:
+    """Phase 25: composite_bwd's BF16 build (cuda_raster's bf16_ops, what
+    tpu_numerics.bf16_replay() turns on) on train view 0 of the stand-in
+    model. At 4 value rows (under the L1 + SSIM loss, as phase 6, on the
+    BF16_BG background) and at the lift's 9 (the label planes as the
+    cotangent, as phase 9): the flagged kernel against the flagged plain
+    replay within BWD_REL of each column's max and, in relative L2, within
+    BF16_SHARE of the distance from the flagged plain replay to each of
+    the wrongly rounded plain replays that this shape exercises (the
+    unflagged one; with the weight-sum row's cotangent rounded too; with
+    A from bfloat16-rounded image rows), all three exercised at 4 rows;
+    bit-identical over two launches, its rows different from the default
+    build's (the flag is live), timed beside the default build in turns;
+    every BF16 instantiation's ptxas line without spills. Under
+    the patch, the end-to-end parameter gradients of the kernel path within
+    GRAD_REL of the all-plain path's, and a Trainer built inside the patch
+    running a block replayed from a CUDA graph, with the counters reset
+    just before and read just after: the BF16 build launched once a step,
+    the default build never."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from wheat3dgs_tpu_torch import config as cfg
+    from wheat3dgs_tpu_torch.models import gaussians as G
+    from wheat3dgs_tpu_torch.models.gaussians import GaussianParams
+    from wheat3dgs_tpu_torch.ops import cuda_build
+    from wheat3dgs_tpu_torch.ops import cuda_raster as CR
+    from wheat3dgs_tpu_torch.ops.binning import pick_entry_budget
+    from wheat3dgs_tpu_torch.ops.losses import photometric_loss
+    from wheat3dgs_tpu_torch.render.pipeline import (RasterConfig,
+                                                     adapt_config,
+                                                     entry_demand_probe,
+                                                     render)
+    from wheat3dgs_tpu_torch.scene import Scene
+    from wheat3dgs_tpu_torch.training import Trainer
+    from wheat3dgs_tpu_torch.utils import image_ops
+
+    t_start = time.perf_counter()
+    numerics = _load_script("tpu_numerics")
+    report = ptxas_report((cuda_build.BUILD_DIR
+                           / "composite_bwd.log").read_text())
+    flagged = {f"NV={k[1]}": v for k, v in sorted(report.items()) if k[2]}
+    if len(flagged) != 10 or any(
+            r.get("spill_stores", 1) or r.get("spill_loads", 1)
+            for r in flagged.values()):
+        fail(f"composite_bwd's BF16 build: ptxas {flagged}")
+    default = {f"NV={k[1]}": v for k, v in sorted(report.items())
+               if not k[2]}
+
+    scene = Scene(cfg.ModelParams(source_path=scene_dir,
+                                  model_path=model_dir),
+                  load_iteration=-1, device=DEVICE)
+    st = scene.gaussians
+    w, h = scene.image_size
+    cams = [scene.cam_arrays("train", i)
+            for i in range(len(scene.data.train))]
+    cam = cams[0]
+    gt = scene.gt_image("train", 0)
+    bg = torch.tensor(BF16_BG, device=DEVICE)
+
+    def replay_args(colors, budget):
+        """composite_bwd's inputs on train view 0 (view_stream and the
+        kernels' forward) and the plan."""
+        plan, alive, skeys, starts, ends, perm, feat = view_stream(
+            scene, cam, budget, colors)
+        with torch.no_grad():
+            img, stop = CR.composite_train_fwd(skeys, starts, ends, feat,
+                                               plan.rank_bits, w, h)
+        return plan, int(alive), (skeys, perm, starts, ends, feat, img,
+                                  stop)
+
+    # 4 rows: the training loss's cotangent at the trainer's budget.
+    budget = pick_entry_budget(int(entry_demand_probe(st, *cam, width=w,
+                                                      height=h)))
+    plan4, alive4, a4 = replay_args(None, budget)
+    img_v = a4[5].detach().requires_grad_(True)
+    color = img_v[2:5] + (1.0 - img_v[0])[None] * bg[:, None, None]
+    grad4 = torch.autograd.grad(photometric_loss(color, gt),
+                                img_v)[0].contiguous()
+    # 9 rows: the lift's first batch of view 0, as phase 9.
+    config9 = adapt_config(st, cam, w, h, cams=cams)
+    paths = scene.data.train.metas[0].mask_paths or []
+    planes = [image_ops.read_mask(p, (w, h)) for p in paths[:7]]
+    planes.append(np.ones((h, w), bool))
+    planes += [np.zeros((h, w), bool)] * (8 - len(planes))
+    plan9, alive9, a9 = replay_args(
+        torch.zeros((st.capacity, 8), device=DEVICE), config9.entry_budget)
+    grad9 = torch.zeros_like(a9[5])
+    grad9[2:] = torch.as_tensor(np.stack(planes), dtype=torch.float32,
+                                device=DEVICE)
+
+    shapes = []
+    for plan, alive, args, grad in ((plan4, alive4, a4, grad4),
+                                    (plan9, alive9, a9, grad9)):
+        bargs = args + (grad, plan.rank_bits, w, h)
+        nv = args[4].shape[1] - 6
+        where = f"composite_bwd (bf16 replay) at nv={nv}"
+        rows_k = check_repeatable(
+            where, lambda *a: CR.composite_bwd(*a, bf16_ops=True), bargs)
+        rows_p, plain_ms = timed_once(
+            lambda: CR.composite_bwd_plain(*bargs, bf16_ops=True))
+        col_max = rows_p.abs().amax(dim=0).clamp(min=1e-30)
+        rel = float(((rows_k - rows_p).abs() / col_max).max())
+        if not bool(torch.isfinite(rows_k).all()) or rel > BWD_REL:
+            fail(f"{where} differs from the flagged plain replay: {rel} of "
+                 f"the column max (bound {BWD_REL})")
+
+        def rel_l2(a):
+            return float((a - rows_p).norm() / rows_p.norm())
+
+        # Plain replays that round other terms than JAX's TPU does.
+        g0_rounded = grad.clone()
+        g0_rounded[0] = CR.bf16_round(grad[0])
+        wrong = {
+            "unflagged": rel_l2(CR.composite_bwd_plain(*bargs)),
+            "weight_sum_cotangent_rounded": rel_l2(CR.composite_bwd_plain(
+                *args[:7], g0_rounded, *bargs[8:], bf16_ops=True)),
+            "A_from_rounded_image": rel_l2(CR.composite_bwd_plain(
+                *args[:5], CR.bf16_round(args[5]), *bargs[6:],
+                bf16_ops=True))}
+        exercised = {k: v for k, v in wrong.items() if v > 0}
+        sound = rel_l2(rows_k)
+        share_bound = BF16_SHARE * min(exercised.values(), default=0.0)
+        if (nv == 4 and len(exercised) != len(wrong)) \
+                or "unflagged" not in exercised or sound > share_bound:
+            fail(f"{where}: {sound} (relative L2) from the flagged plain "
+                 f"replay, bound {share_bound} ({BF16_SHARE} of the nearest"
+                 f" wrongly rounded replay's distance, {wrong})")
+        rows_d = CR.composite_bwd(*bargs)
+        changed = int((rows_d != rows_k).sum())
+        if changed == 0:
+            fail(f"{where}: the rows equal the default build's")
+        ms, ms_default = [], []
+        for turn in ("default", "bf16", "bf16", "default"):
+            (ms if turn == "bf16" else ms_default).append(cuda_time_ms(
+                lambda: CR.composite_bwd(*bargs, bf16_ops=turn == "bf16"),
+                20))
+        e = args[0].shape[0]
+        cols = 6 + nv
+        stop = args[6]
+        ty = torch.arange(h, device=DEVICE)[:, None] // CR.TILE_PX
+        tx = torch.arange(w, device=DEVICE)[None, :] // CR.TILE_PX
+        visited = int((stop.long() - args[2][ty * plan.tiles_x + tx]).sum())
+        _, (_, weighted) = CR.composite_fwd_plain(
+            args[0], args[2], args[3], args[4], plan.rank_bits, w, h,
+            with_counts=True)
+        b_ms, b_by = bound(
+            alive * 16 + plan.t_total * 8 + args[4].numel() * 4
+            + (2 * (1 + nv) * 4 + 4) * w * h + e * cols * 4,
+            visited * 14 + weighted * (36 + 4 * nv))
+        shapes.append(dict(
+            value_rows=nv, ms=sum(ms) / 2, default_ms=sum(ms_default) / 2,
+            plain_ms=plain_ms, max_abs_err=float((rows_k - rows_p).abs()
+                                                 .max()),
+            max_rel_err_of_column_max=rel, bound_rel=BWD_REL,
+            rel_l2=sound, rel_l2_bound=share_bound,
+            wrongly_rounded_rel_l2=wrong,
+            repeat_bit_equal=True, values_differing_from_default=changed,
+            max_rel_change_of_column_max=float(
+                ((rows_k - rows_d).abs() / col_max).max()),
+            bound_ms=b_ms, bound_by=b_by,
+            shape={"slots": e, "entries": alive, "columns": cols,
+                   "visited_pairs": visited, "weighted_pairs": weighted}))
+
+    # End to end under the patch: kernels against the all-plain path.
+    def leaf_grads():
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in st.params.as_dict().items()}
+        view = dataclasses.replace(st, params=GaussianParams(**leaves))
+        out = render(view, *cam, w, h, scene.sh_degree, bg=bg,
+                     config=RasterConfig(entry_budget=budget))
+        return torch.autograd.grad(photometric_loss(out.color, gt),
+                                   list(leaves.values()))
+
+    with numerics.bf16_replay():
+        CR.reset_launches()
+        got = leaf_grads()
+        torch.cuda.synchronize()
+        e2e_launches = dict(CR.launches)
+    # The patch wraps the replay it finds: the plain one inside
+    # plain_kernels.
+    with CR.plain_kernels(), numerics.bf16_replay():
+        ref = leaf_grads()
+    if e2e_launches["composite_bwd_bf16"] != 1 \
+            or e2e_launches["composite_bwd"] != 0:
+        fail(f"phase 25: the patched backward launched {e2e_launches}")
+    grad_rel = {}
+    for k, a, b in zip(st.params.as_dict(), got, ref):
+        top = float(b.abs().max())
+        grad_rel[k] = float((a - b).abs().max()) / top if top > 0 else 0.0
+        if not bool(torch.isfinite(a).all()) or grad_rel[k] > GRAD_REL:
+            fail(f"phase 25: end-to-end gradient of {k} under bf16_replay: "
+                 f"{grad_rel[k]} of its max (bound {GRAD_REL})")
+
+    # A Trainer built inside the patch: its replayed block runs the BF16
+    # build, once a step.
+    gts = torch.as_tensor(scene.data.train.images, device=DEVICE)
+    vis = list(range(BF16_BLOCK))
+    with numerics.bf16_replay():
+        tr = Trainer(G.state_from_numpy(**G.state_to_numpy(st)._asdict(),
+                                        device=DEVICE),
+                     cfg.OptimizationParams(), scene.cameras_extent,
+                     scene.sh_degree, adaptive_occupancy=False)
+        CR.reset_launches()
+        m = tr.step_block(20_001, vis, scene.cam_stack("train"), gts, w, h,
+                          n_steps=BF16_BLOCK)
+        torch.cuda.synchronize()
+        launches = dict(CR.launches)
+    if launches["composite_bwd_bf16"] != BF16_BLOCK \
+            or launches["composite_bwd"] != 0 \
+            or not bool(torch.isfinite(m["loss"])):
+        fail(f"phase 25: a block under bf16_replay launched {launches}, "
+             f"loss {float(m['loss'])}")
+    return dict(seconds=time.perf_counter() - t_start, shapes=shapes,
+                ptxas_bf16=flagged, ptxas_default=default,
+                end_to_end={"budget": budget, "grad_rel_of_max": grad_rel,
+                            "launches": e2e_launches},
+                block={"steps": BF16_BLOCK, "captures": tr.graph.captures,
+                       "replays": tr.graph.replays,
+                       "loss": float(m["loss"])},
+                launches=launches)
+
+
+def root_tools_path(scene_dir: str) -> dict:
+    """Phase 26: the two host-only root tools as processes, with pandas and
+    matplotlib made unimportable in them: scripts/summarize_results.py over
+    a plot_* layout made from phase 12's results.json (a plot with its
+    point_cloud/, one without, one without results.json), then its CSV rows
+    against the file's numbers; apps/vis_cam on the bench scene's sparse/0,
+    its PNG decoded, of its size, with both splits' colours in it."""
+    import subprocess
+
+    import numpy as np
+    from PIL import Image
+
+    t_start = time.perf_counter()
+    base = os.path.join(WORK, "a14")
+    model = os.path.join(WORK, "train_model")
+    with open(os.path.join(model, "results.json")) as f:
+        results = json.load(f)
+    for name in ("plot_1", "plot_2", "plot_3"):
+        os.makedirs(os.path.join(base, "plots", name))
+    for name in ("plot_1", "plot_2"):
+        shutil.copy(os.path.join(model, "results.json"),
+                    os.path.join(base, "plots", name))
+    shutil.copytree(os.path.join(model, "point_cloud"),
+                    os.path.join(base, "plots", "plot_1", "point_cloud"))
+    blocked = "import runpy, sys; sys.modules.update(pandas=None, " \
+        "matplotlib=None); sys.argv = sys.argv[1:]; "
+    runs = {
+        "summarize_results": [
+            "runpy.run_path(sys.argv[0], run_name='__main__')",
+            os.path.join(ROOT, "wheat3dgs_tpu_torch", "scripts",
+                         "summarize_results.py"),
+            "-b", os.path.join(base, "plots"), "-o", os.path.join(base, "out")],
+        "vis_cam": [
+            "runpy.run_module('wheat3dgs_tpu_torch.apps.vis_cam', "
+            "run_name='__main__', alter_sys=True)", "vis_cam",
+            "-s", scene_dir, "-o", os.path.join(base, "cameras.png")]}
+    seconds = {}
+    for name, (code, *argv) in runs.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", blocked + code, *argv], cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+            text=True, timeout=SCRIPT_TIMEOUT)
+        seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"phase 26: {name} exited {proc.returncode}:\n"
+                 f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    key = sorted(results)[-1]
+    with open(os.path.join(base, "out", "results_per_scene.csv")) as f:
+        per_scene = f.read().splitlines()
+    with open(os.path.join(base, "out", "results_summary.csv")) as f:
+        summary = f.read().splitlines()
+    m = results[key]
+    scores = ",".join("" if m.get(k) is None else repr(float(m[k]))
+                      for k in ("PSNR", "SSIM", "LPIPS"))
+    if per_scene[0] != "scene,method,psnr,ssim,lpips,storage_mb" \
+            or len(per_scene) != 3 \
+            or not per_scene[1].startswith(f"plot_1,wheat3dgs/{key},"
+                                           f"{scores},") \
+            or per_scene[2] != f"plot_2,wheat3dgs/{key},{scores}," \
+            or len(summary) != 4 or summary[2] != "method" + "," * 8 \
+            or not summary[3].startswith(
+                f"wheat3dgs/{key},{float(m['PSNR'])!r},0.0,"):
+        fail(f"phase 26: summarize_results wrote {per_scene} / {summary}")
+    png = Image.open(os.path.join(base, "cameras.png"))
+    pix = np.asarray(png.convert("RGB")).reshape(-1, 3)
+    colours = {name: int((pix == c).all(axis=1).sum()) for name, c in
+               (("red", (255, 0, 0)), ("blue", (0, 0, 255)))}
+    if png.size != (1500, 1200) or min(colours.values()) == 0:
+        fail(f"phase 26: vis_cam's PNG {png.size}, {colours}")
+    return dict(seconds=time.perf_counter() - t_start,
+                process_seconds=seconds, per_scene=per_scene,
+                summary=summary, png_size=list(png.size),
+                split_pixels=colours)
 
 
 def main() -> None:
@@ -3894,6 +4265,45 @@ def main() -> None:
               f"{r['test_psnr']:.2f} dB" for r in diag)
           + f"; launches {ec['launches']}; {smi}", flush=True)
 
+    # 25. composite_bwd's BF16 build (the bf16 replay patch)
+    br = bf16_replay_path(scene_dir, model_dir)
+    say("bf16_replay", **br)
+    print("bf16 replay: " + ", ".join(
+        f"{r['value_rows']} rows {r['ms']:.4f} ms (default build "
+        f"{r['default_ms']:.4f} in the same turns), "
+        f"{r['max_rel_err_of_column_max']:.2e} of the column max and "
+        f"{r['rel_l2']:.2e} in relative L2 (bound {r['rel_l2_bound']:.2e}) "
+        f"from the flagged plain replay, wrongly rounded replays at "
+        + ", ".join(f"{k} {v:.2e}" for k, v in
+                    r["wrongly_rounded_rel_l2"].items())
+        + f", {r['values_differing_from_default']} values "
+        f"off the default build" for r in br["shapes"])
+        + f"; gradients within "
+        f"{max(br['end_to_end']['grad_rel_of_max'].values()):.2e} of the "
+        f"all-plain path under the patch; a {BF16_BLOCK}-step block "
+        f"launched {br['launches']['composite_bwd_bf16']} BF16 / "
+        f"{br['launches']['composite_bwd']} default; {br['seconds']:.1f} s;"
+        f" {smi}", flush=True)
+    paths = {"serving": mp, "training": tp, "segmentation": sp,
+             "evaluation": ep, "metrics": mt, "360_field": fp,
+             "360_head": hp, "viewer": vp, "pipeline_script": pp,
+             "eval_script": pp["eval_script"], "multi_plot": mpp,
+             "bench": bp, "distributed": dp, "reference_scene": rs,
+             "envelope_chain": ec}
+    on_default = {k: r["launches"]["composite_bwd_bf16"]
+                  for k, r in paths.items()}
+    if any(on_default.values()):
+        fail(f"a default path launched the BF16 build: {on_default}")
+
+    # 26. the host-only root tools (A14)
+    rt = root_tools_path(scene_dir)
+    say("root_tools", **rt)
+    print(f"root tools: summarize_results "
+          f"{rt['process_seconds']['summarize_results']:.1f} s, vis_cam "
+          f"{rt['process_seconds']['vis_cam']:.1f} s ({rt['png_size'][0]}x"
+          f"{rt['png_size'][1]}, {rt['split_pixels']} split pixels), "
+          f"without pandas or matplotlib; {smi}", flush=True)
+
     src = "wheat3dgs_tpu_torch/csrc/"
     tpu = "wheat3dgs_tpu/ops/pallas_raster.py:"
     keys = ("value_rows", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -3931,6 +4341,20 @@ def main() -> None:
                          "envelope_chain": ec["launches"][name]},
                      "segmentation_shapes": [
                          {k: x.get(k) for k in keys} for x in shapes]})
+    # The BF16 build's row: launches from phase 25's block (it is on no
+    # default path: each path's count beside it), the 4-row shape first.
+    b4, b9 = br["shapes"]
+    rows.append({"name": "composite_bwd (bf16 replay)", "route": "cuda",
+                 "source": src + "composite_bwd.cu",
+                 "replaces": f"{tpu}840",
+                 "launches": br["launches"]["composite_bwd_bf16"],
+                 "max_abs_err": b4["max_abs_err"], "ms": b4["ms"],
+                 "plain_ms": b4["plain_ms"], "bound_ms": b4["bound_ms"],
+                 "bound_by": b4["bound_by"], "library_ms": None,
+                 "default_build_ms": b4["default_ms"],
+                 "launches_by_path": on_default,
+                 "segmentation_shapes": [
+                     {k: b9.get(k) for k in keys + ("default_ms",)}]})
     # The probe's row: the cumsum kind (torch.cumsum computes the same
     # function; library_ms is its loop replayed from a CUDA graph, without
     # the host's launches), each kind beside it.

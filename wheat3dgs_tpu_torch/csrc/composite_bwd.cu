@@ -67,7 +67,20 @@
 //   order (a skipped warp's term is an exact zero). No atomics on the
 //   output, and two launches give bit-identical rows.
 // Float32 throughout; the direct form, not the TPU's moment matmuls.
+//
+// The BF16 build (composite_bwd_bf16_launch; cuda_raster's bf16_ops, on
+// request only) rounds what the TPU kernel rounds (:964-990): its three
+// products take bfloat16 operands and sum in float32. Each pixel's value
+// row cotangents and each staged entry's value rows are rounded as they
+// are staged (u = sum_v g_v value_v), each value-row prefix term w u_v is
+// rounded before it is added, and the weight of d value_v = Σ w g_v is
+// rounded with its g_v. The weight-sum row's part (g_0 in u, w g_0 in the
+// prefix) stays float32 as JAX's a2 / T_final route does, and so do the
+// suffix total A, the transmittance and the geometry sums. The default
+// build's code is unchanged: every difference sits behind the template
+// flag.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "composite_common.cuh"
@@ -151,9 +164,16 @@ __device__ __forceinline__ float warp_transpose_sum(float (&v)[W]) {
   return v[0];
 }
 
+// x rounded to bfloat16 (to nearest, ties to even) and back: an operand of
+// a one-pass bfloat16 MXU product.
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // Two blocks (tiles) per SM, so at most 32 registers a thread (ptxas gets
 // --register-usage-level=2 to fit that without spilling, ops/cuda_build.py).
-template <int NV>
+// BF16: the TPU's rounding of the replay's products (see the top).
+template <int NV, bool BF16>
 __global__ void __launch_bounds__(THREADS, 2)
 composite_bwd_kernel(const long long* __restrict__ skeys,
                      const long long* __restrict__ perm,
@@ -205,7 +225,7 @@ composite_bwd_kernel(const long long* __restrict__ skeys,
 #pragma unroll
     for (int v = 0; v < NV; ++v) {
       const float g = grad[(v + 1) * plane + p];
-      s_gv[v * THREADS + tid] = g;
+      s_gv[v * THREADS + tid] = BF16 ? bf16_round(g) : g;
       a_total += g * img[(v + 1) * plane + p];
     }
   }
@@ -230,7 +250,9 @@ composite_bwd_kernel(const long long* __restrict__ skeys,
       // logf), so no pair the forward included is skipped here.
       s_power_min[tid] = logf(alpha_min / f[5]) - 1e-3f;
 #pragma unroll
-      for (int v = 0; v < NV; ++v) s_val[v][tid] = f[6 + v];
+      for (int v = 0; v < NV; ++v) {
+        s_val[v][tid] = BF16 ? bf16_round(f[6 + v]) : f[6 + v];
+      }
     }
     if (tid < BATCH) s_warps[tid] = 0u;
     __syncthreads();
@@ -259,12 +281,24 @@ composite_bwd_kernel(const long long* __restrict__ skeys,
         if (w3::alpha_live(power, alpha, alpha_min)) {
           const float t_before = trans;
           const float w = alpha * t_before;
-          float u = s_g0[tid];
+          float u;
+          if constexpr (BF16) {
+            float u_v = 0.0f;
 #pragma unroll
-          for (int v = 0; v < NV; ++v) {
-            u += s_gv[v * THREADS + tid] * s_val[v][i];
+            for (int v = 0; v < NV; ++v) {
+              u_v += s_gv[v * THREADS + tid] * s_val[v][i];
+            }
+            const float g0 = s_g0[tid];
+            u = g0 + u_v;
+            prefix += bf16_round(w * u_v) + w * g0;
+          } else {
+            u = s_g0[tid];
+#pragma unroll
+            for (int v = 0; v < NV; ++v) {
+              u += s_gv[v * THREADS + tid] * s_val[v][i];
+            }
+            prefix += w * u;
           }
-          prefix += w * u;
           const float dalpha =
               raw < alpha_max
                   ? t_before * u - __fdividef(s_a[tid] - prefix, 1.0f - alpha)
@@ -288,9 +322,10 @@ composite_bwd_kernel(const long long* __restrict__ skeys,
         if (lane < 6) s_part[(warp * BATCH + i) * COLS + lane] = sum;
         if constexpr (NV > 0) {
           constexpr int WV = pow2_at_least(NV);
+          const float wv = BF16 ? bf16_round(wt) : wt;
           float cv[WV];
 #pragma unroll
-          for (int v = 0; v < NV; ++v) cv[v] = wt * s_gv[v * THREADS + tid];
+          for (int v = 0; v < NV; ++v) cv[v] = wv * s_gv[v * THREADS + tid];
 #pragma unroll
           for (int v = NV; v < WV; ++v) cv[v] = 0.0f;
           const float sv = warp_transpose_sum<WV>(cv);
@@ -315,7 +350,7 @@ composite_bwd_kernel(const long long* __restrict__ skeys,
   }
 }
 
-template <int NV>
+template <int NV, bool BF16>
 cudaError_t launch(const void* skeys, const void* perm, const void* starts,
                    const void* ends, const void* feat, long long rank_mask,
                    int tiles_x, int tiles_y, int width, int height,
@@ -324,11 +359,12 @@ cudaError_t launch(const void* skeys, const void* perm, const void* starts,
                    cudaStream_t s) {
   // Above 48 KB of dynamic shared memory only after opting in.
   const cudaError_t err = cudaFuncSetAttribute(
-      composite_bwd_kernel<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      composite_bwd_kernel<NV, BF16>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       dyn_bytes(NV, batch_size(NV)));
   if (err != cudaSuccess) return err;
-  composite_bwd_kernel<NV><<<tiles_x * tiles_y, THREADS,
-                             dyn_bytes(NV, batch_size(NV)), s>>>(
+  composite_bwd_kernel<NV, BF16><<<tiles_x * tiles_y, THREADS,
+                                   dyn_bytes(NV, batch_size(NV)), s>>>(
       static_cast<const long long*>(skeys),
       static_cast<const long long*>(perm), static_cast<const int*>(starts),
       static_cast<const int*>(ends), static_cast<const float*>(feat),
@@ -336,6 +372,33 @@ cudaError_t launch(const void* skeys, const void* perm, const void* starts,
       static_cast<const float*>(img), static_cast<const int*>(stop),
       static_cast<const float*>(grad), static_cast<float*>(out));
   return cudaGetLastError();
+}
+
+template <bool BF16>
+int dispatch(const void* skeys, const void* perm, const void* starts,
+             const void* ends, const void* feat, int nv, int rank_bits,
+             int tiles_x, int tiles_y, int width, int height,
+             float alpha_min, float alpha_max, const void* img,
+             const void* stop, const void* grad, void* out, void* stream) {
+  if (nv < 0 || nv > w3::MAX_NV) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (tiles_x * tiles_y == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long mask = (1LL << rank_bits) - 1;
+  cudaError_t err = cudaErrorInvalidValue;
+#define W3_CASE(N)                                                          \
+  case N:                                                                   \
+    err = launch<N, BF16>(skeys, perm, starts, ends, feat, mask, tiles_x,   \
+                          tiles_y, width, height, alpha_min, alpha_max,     \
+                          img, stop, grad, out, s);                         \
+    break;
+  switch (nv) {
+    W3_CASE(0) W3_CASE(1) W3_CASE(2) W3_CASE(3) W3_CASE(4)
+    W3_CASE(5) W3_CASE(6) W3_CASE(7) W3_CASE(8) W3_CASE(9)
+  }
+#undef W3_CASE
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -346,25 +409,21 @@ extern "C" int composite_bwd_launch(
     int tiles_y, int width, int height, float alpha_min, float alpha_max,
     const void* img, const void* stop, const void* grad, void* out,
     void* stream) {
-  if (nv < 0 || nv > w3::MAX_NV) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (tiles_x * tiles_y == 0) return static_cast<int>(cudaSuccess);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long mask = (1LL << rank_bits) - 1;
-  cudaError_t err = cudaErrorInvalidValue;
-#define W3_CASE(N)                                                          \
-  case N:                                                                   \
-    err = launch<N>(skeys, perm, starts, ends, feat, mask, tiles_x,         \
-                    tiles_y, width, height, alpha_min, alpha_max, img,      \
-                    stop, grad, out, s);                                    \
-    break;
-  switch (nv) {
-    W3_CASE(0) W3_CASE(1) W3_CASE(2) W3_CASE(3) W3_CASE(4)
-    W3_CASE(5) W3_CASE(6) W3_CASE(7) W3_CASE(8) W3_CASE(9)
-  }
-#undef W3_CASE
-  return static_cast<int>(err);
+  return dispatch<false>(skeys, perm, starts, ends, feat, nv, rank_bits,
+                         tiles_x, tiles_y, width, height, alpha_min,
+                         alpha_max, img, stop, grad, out, stream);
+}
+
+// The BF16 build: the TPU's rounding of the replay's products.
+extern "C" int composite_bwd_bf16_launch(
+    const void* skeys, const void* perm, const void* starts,
+    const void* ends, const void* feat, int nv, int rank_bits, int tiles_x,
+    int tiles_y, int width, int height, float alpha_min, float alpha_max,
+    const void* img, const void* stop, const void* grad, void* out,
+    void* stream) {
+  return dispatch<true>(skeys, perm, starts, ends, feat, nv, rank_bits,
+                        tiles_x, tiles_y, width, height, alpha_min,
+                        alpha_max, img, stop, grad, out, stream);
 }
 
 extern "C" const char* composite_bwd_error_string(int err) {

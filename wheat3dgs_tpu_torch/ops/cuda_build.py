@@ -47,9 +47,11 @@ KERNELS = {
     "scan_probe": [],
 }
 
-# Kernel launches per kernel name (a source may hold several kernels).
+# Kernel launches per kernel name (a source may hold several kernels;
+# composite_bwd_bf16 is composite_bwd.cu's build with JAX's TPU rounding).
 launches = {"decode_cull": 0, "composite_fwd": 0, "composite_train_fwd": 0,
-            "composite_bwd": 0, "segsum": 0, "scan_probe": 0}
+            "composite_bwd": 0, "composite_bwd_bf16": 0, "segsum": 0,
+            "scan_probe": 0}
 
 _loaded: dict = {}
 

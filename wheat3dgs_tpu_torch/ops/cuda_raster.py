@@ -44,7 +44,11 @@ the card's tensors too, for a run held against the kernels.
 The TPU schedule knobs (bf16 payload packing, W3_TRI_MODE,
 WHEAT3DGS_MOMENT_KERNELS, r_batch, 128-lane chunking) have no counterpart:
 the port always composites exact float32, which is the JAX path with
-pack_payload=False.
+pack_payload=False. Only on request does the backward replay round what
+JAX's `_bwd_kernel` rounds on a TPU: `composite_bwd(..., bf16_ops=True)`
+(scripts/tpu_numerics.py's `bf16_replay()` routes `rasterize`'s backward
+there). `BF16_FWD` (its `bf16_fwd()`) rounds the plain training
+compositor and replay as JAX's round-3 forward did; it has no kernel.
 """
 
 from __future__ import annotations
@@ -126,6 +130,13 @@ def _same_cuda_device(*ts: torch.Tensor) -> None:
     for t in ts:
         if t.device != dev:
             raise ValueError(f"tensors on {t.device} and {dev}")
+
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bfloat16 (to nearest, ties to even) and back to
+    float32: an operand of a one-pass bfloat16 MXU product, as JAX's
+    `astype(jnp.bfloat16)` rounds it."""
+    return x.to(torch.bfloat16).float()
 
 
 _P = ctypes.c_void_p
@@ -275,7 +286,7 @@ def _chunk_alpha(feat_r, rank, pos, valid, px, py):
 def _plain_forward(skeys, starts, ends, feat_r, rank_bits: int, width: int,
                    height: int, with_stop: bool, with_counts: bool,
                    keep: Optional[torch.Tensor] = None,
-                   with_contrib: bool = False):
+                   with_contrib: bool = False, bf16_fwd: bool = False):
     """The `_fwd_kernel` / `_fwd_only_kernel` maths per tile and per chunk
     of PLAIN_CHUNK entries (log-space transmittance via a cumsum over the
     chunk), PLAIN_TILE_BATCH tiles at a time so it fits on the card at full
@@ -283,7 +294,12 @@ def _plain_forward(skeys, starts, ends, feat_r, rank_bits: int, width: int,
     only the entries kept in its sub-tile, as the kernels do. Returns
     (image, stop or None, (visited, weighted) or None), and with
     with_contrib the (H, W) int32 count of the entries each pixel included
-    (w > 0, JAX's contrib_num) after them."""
+    (w > 0, JAX's contrib_num) after them. bf16_fwd: the log-transmittance
+    prefix adds log1p(-alpha) rounded to bfloat16, and the image rows sum
+    bfloat16-rounded weights times bfloat16-rounded value rows in float32,
+    as a one-pass bfloat16 matmul at a TPU's default precision computes
+    JAX's `l1m @ tri` and `acc += ent . w` (the `_fwd_kernel` of commit
+    54bd0ea, pallas_raster.py:673-689)."""
     dev = feat_r.device
     nv = feat_r.shape[1] - 6
     tiles_x, tiles_y = num_tiles(width, height, TILE_PX)
@@ -327,13 +343,18 @@ def _plain_forward(skeys, starts, ends, feat_r, rank_bits: int, width: int,
                     & ((px < width) & (py < height))[:, :, None]
                 alpha = torch.where(walk, alpha, torch.zeros_like(alpha))
             l1m = torch.log1p(-alpha)
-            log_t_after = log_t[:, :, None] + torch.cumsum(l1m, dim=2)
+            log_t_after = log_t[:, :, None] + torch.cumsum(
+                bf16_round(l1m) if bf16_fwd else l1m, dim=2)
             include = log_t_after >= LOG_T_EPS
             w = torch.where(include, alpha * torch.exp(log_t_after - l1m),
                             torch.zeros_like(alpha))
             vals = torch.cat([torch.ones_like(f[:, :, :1]), f[:, :, 6:]],
                              dim=2)                            # (B, K, 1+nv)
-            acc += torch.einsum("bpk,bkv->bvp", w, vals)
+            if bf16_fwd:
+                acc += torch.einsum("bpk,bkv->bvp", bf16_round(w),
+                                    bf16_round(vals))
+            else:
+                acc += torch.einsum("bpk,bkv->bvp", w, vals)
             if with_stop:
                 # w > 0 exactly for included live entries (w >= 1e-4/255).
                 last = torch.maximum(last, torch.where(
@@ -382,6 +403,19 @@ def _compositor_shapes(name, skeys, starts, ends, feat_r, width, height):
 def _cuda_only(name: str, t: torch.Tensor) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {t.device}")
+
+
+# Read only by the plain training compositor and replay: True rounds their
+# transmittance prefix and image sums as a TPU's default-precision matmul
+# (JAX's round-3 forward; scripts/tpu_numerics.py's bf16_fwd() sets it).
+# The kernels have no such build and refuse to run while it is set.
+BF16_FWD = False
+
+
+def _no_bf16_fwd(name: str) -> None:
+    if BF16_FWD:
+        raise RuntimeError(f"{name}: BF16_FWD has no kernel; run the plain "
+                           "versions (plain_kernels())")
 
 
 # --- the forward compositors' sub-tile cull -----------------------------------
@@ -511,9 +545,11 @@ def composite_train_fwd_plain(skeys, starts, ends, feat_r, rank_bits: int,
     the (H, W) int32 stop (one past the sorted position of the last entry
     each pixel included; its tile's segment start if none); with_contrib
     also returns the (H, W) int32 count of the entries each pixel
-    included."""
+    included. While BF16_FWD is set, the TPU's default-precision rounding
+    of the prefix and the image sums (`_plain_forward`'s bf16_fwd)."""
     out = _plain_forward(skeys, starts, ends, feat_r, rank_bits, width,
-                         height, True, False, with_contrib=with_contrib)
+                         height, True, False, with_contrib=with_contrib,
+                         bf16_fwd=BF16_FWD)
     return (out[0], out[1], out[3]) if with_contrib else out[:2]
 
 
@@ -528,6 +564,7 @@ def composite_train_fwd(skeys, starts, ends, feat_r, rank_bits: int,
                                          rank_bits, width, height,
                                          with_contrib)
     _cuda_only("composite_train_fwd", feat_r)
+    _no_bf16_fwd("composite_train_fwd")
     tiles_x, tiles_y, nv = _compositor_shapes(
         "composite_train_fwd", skeys, starts, ends, feat_r, width, height)
     if with_contrib and nv != COUNT_NV:
@@ -557,8 +594,28 @@ def composite_train_fwd(skeys, starts, ends, feat_r, rank_bits: int,
 # --- composite_bwd -----------------------------------------------------------
 
 
+def bf16_replay_products(g_v, vals_v, w):
+    """The replay's three products over one chunk of K entries of a batch
+    of B tiles, as JAX's `_bwd_kernel` computes them on a TPU
+    (pallas_raster.py:964-990): each product's operands rounded to
+    bfloat16, the products (exact in float32) summed in float32.
+    g_v (B, nv, P) the value rows' cotangents, vals_v (B, K, nv) the
+    entries' value rows, w (B, P, K) the weights ->
+      u_v   (B, P, K)  = sum_v g_v value_v (`u = gmat . ent`),
+      terms (B, P, K)  = w u_v rounded to bfloat16, the addends of the
+                         prefix (`pu @ tri`, whose 0/1 `tri` is exact),
+      d_val (B, K, nv) = sum_p w g_v (`fg = gmat . w`).
+    The weight-sum row is not among them: JAX keeps its counterpart, the
+    `a2` / T_final route, in float32."""
+    g_b = bf16_round(g_v)
+    u_v = torch.einsum("bvp,bkv->bpk", g_b, bf16_round(vals_v))
+    return (u_v, bf16_round(w * u_v),
+            torch.einsum("bpk,bvp->bkv", bf16_round(w), g_b))
+
+
 def composite_bwd_plain(skeys, perm, starts, ends, feat_r, img, stop, grad,
-                        rank_bits: int, width: int, height: int):
+                        rank_bits: int, width: int, height: int,
+                        bf16_ops: bool = False):
     """Plain PyTorch backward replay: the `_bwd_kernel` maths in direct form
     (pallas_raster.py:927-1035), per chunk of PLAIN_CHUNK entries and
     PLAIN_TILE_BATCH tiles at a time. Per pixel, with the weight-sum row
@@ -571,7 +628,17 @@ def composite_bwd_plain(skeys, perm, starts, ends, feat_r, img, stop, grad,
     d xy = Σ dpow (a dx + b dy, b dx + c dy), d conic = Σ dpow (-dx²/2,
     -dx dy, -dy²/2), d opacity = Σ dα e^power, d value_v = Σ w grad_v.
     Returns (E, 6 + nv) rows at each entry's pre-sort slot (perm), zero for
-    entries no pixel reached."""
+    entries no pixel reached.
+
+    bf16_ops: u, the prefix and d value_v take JAX's TPU rounding
+    (`bf16_replay_products`): the value rows' part of u and of each prefix
+    term, and both factors of d value_v, from bfloat16 operands. The
+    weight-sum row's part (g_0 in u, w g_0 in the prefix: JAX's float32
+    `a2` / T_final route, pallas_raster.py:913-915, 972-976), A, the
+    transmittance and the geometry sums stay float32. While BF16_FWD is
+    set, the transmittance replay's prefix adds bfloat16-rounded
+    log1p(-alpha), as composite_train_fwd_plain's forward then does, so its
+    weights are the forward's."""
     dev = feat_r.device
     nv = feat_r.shape[1] - 6
     tiles_x, tiles_y = num_tiles(width, height, TILE_PX)
@@ -604,13 +671,22 @@ def composite_bwd_plain(skeys, perm, starts, ends, feat_r, img, stop, grad,
             before = pos[:, None, :] < st[:, :, None]          # (B, P, K)
             alpha = torch.where(before, alpha, torch.zeros_like(alpha))
             l1m = torch.log1p(-alpha)
-            log_t_after = log_t[:, :, None] + torch.cumsum(l1m, dim=2)
+            log_t_after = log_t[:, :, None] + torch.cumsum(
+                bf16_round(l1m) if BF16_FWD else l1m, dim=2)
             t_before = torch.exp(log_t_after - l1m)
             w = alpha * t_before
-            vals = torch.cat([torch.ones_like(f[:, :, :1]), f[:, :, 6:]],
-                             dim=2)                            # (B, K, 1+nv)
-            u = torch.einsum("bvp,bkv->bpk", gb, vals)
-            pre = prefix[:, :, None] + torch.cumsum(w * u, dim=2)
+            if bf16_ops:
+                u_v, terms, dval = bf16_replay_products(gb[:, 1:], f[:, :, 6:],
+                                                        w)
+                g0 = gb[:, 0, :, None]                         # (B, P, 1)
+                u = g0 + u_v
+                pre = prefix[:, :, None] + torch.cumsum(terms + w * g0,
+                                                        dim=2)
+            else:
+                vals = torch.cat([torch.ones_like(f[:, :, :1]), f[:, :, 6:]],
+                                 dim=2)                        # (B, K, 1+nv)
+                u = torch.einsum("bvp,bkv->bpk", gb, vals)
+                pre = prefix[:, :, None] + torch.cumsum(w * u, dim=2)
             ok = (alpha > 0) & (raw < ALPHA_MAX)
             dalpha = torch.where(ok, t_before * u - (ab - pre) / (1.0 - alpha),
                                  torch.zeros_like(alpha))
@@ -624,7 +700,8 @@ def composite_bwd_plain(skeys, perm, starts, ends, feat_r, img, stop, grad,
                 (-dpow * dx * dy).sum(1),
                 (-0.5 * dpow * dy * dy).sum(1),
                 (dalpha * ep).sum(1)], dim=2)                  # (B, K, 6)
-            dval = torch.einsum("bpk,bvp->bkv", w, gb[:, 1:])  # (B, K, nv)
+            if not bf16_ops:
+                dval = torch.einsum("bpk,bvp->bkv", w, gb[:, 1:])  # (B,K,nv)
             rows = torch.cat([geo, dval], dim=2)
             out[perm[pos[valid]]] = rows[valid]
             log_t = log_t_after[:, :, -1]
@@ -669,15 +746,21 @@ def bwd_warp_steps(skeys, starts, ends, feat_r, stop, rank_bits: int,
 
 
 def composite_bwd(skeys, perm, starts, ends, feat_r, img, stop, grad,
-                  rank_bits: int, width: int, height: int):
+                  rank_bits: int, width: int, height: int,
+                  bf16_ops: bool = False):
     """The training forward's inputs and residuals ((1 + nv, H, W) image,
     (H, W) int32 stop), the (E,) int64 sort permutation and the image's
     cotangent `grad` -> (E, 6 + nv) float32 per-entry gradient rows at the
-    entries' pre-sort slots (zero where no pixel reached the entry)."""
+    entries' pre-sort slots (zero where no pixel reached the entry).
+    bf16_ops: the replay's products with JAX's TPU rounding (see
+    composite_bwd_plain); on the card the kernel's second build, counted
+    as `composite_bwd_bf16`."""
     if feat_r.device.type == "cpu":
         return composite_bwd_plain(skeys, perm, starts, ends, feat_r, img,
-                                   stop, grad, rank_bits, width, height)
+                                   stop, grad, rank_bits, width, height,
+                                   bf16_ops=bf16_ops)
     _cuda_only("composite_bwd", feat_r)
+    _no_bf16_fwd("composite_bwd")
     tiles_x, tiles_y, nv = _compositor_shapes(
         "composite_bwd", skeys, starts, ends, feat_r, width, height)
     e = skeys.shape[0]
@@ -687,14 +770,15 @@ def composite_bwd(skeys, perm, starts, ends, feat_r, img, stop, grad,
     _check(stop, "stop", torch.int32, (height, width))
     _check(grad, "grad", torch.float32, (1 + nv, height, width))
     out = torch.zeros((e, 6 + nv), dtype=torch.float32, device=feat_r.device)
-    _launch("composite_bwd",
+    name = "composite_bwd_bf16" if bf16_ops else "composite_bwd"
+    _launch(name,
             [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P, _P,
              _P],
             (skeys.data_ptr(), perm.data_ptr(), starts.data_ptr(),
              ends.data_ptr(), feat_r.data_ptr(), nv, rank_bits, tiles_x,
              tiles_y, width, height, ALPHA_MIN, ALPHA_MAX, img.data_ptr(),
              stop.data_ptr(), grad.data_ptr(), out.data_ptr()),
-            feat_r.device)
+            feat_r.device, source="composite_bwd")
     return out
 
 

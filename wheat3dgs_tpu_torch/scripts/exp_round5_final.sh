@@ -18,12 +18,14 @@
 # docs/quality; here every artifact stays in the model directory: the
 # report, seg360_morph.log, morph_compare.json and morph_compare_table.txt.
 #
-# SEG_KNN / SEG_BF16_GRADS / SEG_SEED (exp_seg_envelope.py's) pass through:
-# off their defaults, training and step 2 run through tpu_numerics.py.
+# SEG_KNN / SEG_BF16_GRADS / SEG_BF16_REPLAY / SEG_SEED (exp_seg_envelope.py's)
+# pass through: off their defaults, training and step 2 run through
+# tpu_numerics.py.
 # ITERS (default 15000) is the training length.
 #
 # Usage: [SEG_SCENE=dir] [SEG_MODEL=dir] [SEG_* sizes] [ITERS=15000] \
-#   [SEG_KNN=exact|bfloat16] [SEG_BF16_GRADS=0|1] [SEG_SEED=0] \
+#   [SEG_KNN=exact|bfloat16] [SEG_BF16_GRADS=0|1] [SEG_BF16_REPLAY=0|1] \
+#   [SEG_SEED=0] \
 #   [FRAMES=200] [HEAD_FRAMES=100] [DEVICE=cuda|cpu] \
 #   bash wheat3dgs_tpu_torch/scripts/exp_round5_final.sh
 set -exuo pipefail
@@ -34,6 +36,7 @@ export SEG_SCENE=${SEG_SCENE:-$ROOT/output/exp_seg_envelope/scene}
 export SEG_MODEL=${SEG_MODEL:-$ROOT/output/exp_seg_envelope/model}
 export SEG_KNN=${SEG_KNN:-exact}
 export SEG_BF16_GRADS=${SEG_BF16_GRADS:-0}
+export SEG_BF16_REPLAY=${SEG_BF16_REPLAY:-0}
 export SEG_SEED=${SEG_SEED:-0}
 ITERS=${ITERS:-15000}
 export DEVICE=${DEVICE:-cuda}
@@ -51,9 +54,10 @@ ls "$SEG_MODEL"
 # 2. find-&-match (a rerun resumes from its loop state)
 SEG=(-m wheat3dgs_tpu_torch.apps.run_3d_seg_app)
 if [ "$SEG_KNN" != exact ] || [ "$SEG_BF16_GRADS" != 0 ] \
-    || [ "$SEG_SEED" != 0 ]; then
+    || [ "$SEG_BF16_REPLAY" != 0 ] || [ "$SEG_SEED" != 0 ]; then
   SEG=("$SCRIPTS/tpu_numerics.py")
   if [ "$SEG_BF16_GRADS" = 1 ]; then SEG+=(--bf16_grads); fi
+  if [ "$SEG_BF16_REPLAY" = 1 ]; then SEG+=(--bf16_replay); fi
   SEG+=(-- wheat3dgs_tpu_torch.apps.run_3d_seg_app)
 fi
 T0=$(date +%s)

@@ -22,14 +22,18 @@ JAX's band (docs/REPORT.md:293) was taken on a TPU. SEG_KNN=bfloat16 sizes
 the scene's splats with the 3-NN distance as a TPU computes it (the
 generator's knn) and starts training from it; SEG_BF16_GRADS=1 rounds the
 entry gradients to bfloat16 before the per-splat sum, in training and in
-the segmentation's lift, as JAX's Pallas backward does; SEG_SEED seeds the
-Trainer's split noise. Any of them off its default (exact, 0, 0) runs
-training and segmentation through tpu_numerics.py, is written into the
-report's note, and needs a SEG_SCENE and a SEG_MODEL of its own: with the
-default ones the script refuses before it runs anything.
+the segmentation's lift, as JAX's Pallas backward does; SEG_BF16_REPLAY=1
+takes the backward replay's three products from bfloat16 operands with
+float32 sums, as JAX's `_bwd_kernel` computes them on a TPU, in training
+and the lift too; SEG_SEED seeds the Trainer's split noise. Any of them
+off its default (exact, 0, 0, 0) runs training and segmentation through
+tpu_numerics.py, is written into the report's note, and needs a SEG_SCENE
+and a SEG_MODEL of its own: with the default ones the script refuses
+before it runs anything. SEG_BF16_GRADS and SEG_BF16_REPLAY take 0 or 1.
 
 Usage: [SEG_SCENE=dir] [SEG_MODEL=dir] [SEG_HEADS=36] ...
-    [SEG_KNN=exact|bfloat16] [SEG_BF16_GRADS=0|1] [SEG_SEED=0]
+    [SEG_KNN=exact|bfloat16] [SEG_BF16_GRADS=0|1] [SEG_BF16_REPLAY=0|1]
+    [SEG_SEED=0]
     python wheat3dgs_tpu_torch/scripts/exp_seg_envelope.py [--iters N]
         [--skip_train] [--skip_seg] [--seg_wall S] [--note TEXT]
         [--device cuda|cpu]
@@ -62,7 +66,16 @@ APPS = "wheat3dgs_tpu_torch.apps"
 TPU_NUMERICS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "tpu_numerics.py")
 # The SEG_KNN / SEG_BF16_GRADS / SEG_SEED defaults: the port's own numerics.
+# SEG_BF16_REPLAY (default 0) joins them only when it is 1, so that the
+# commands and the note of every other setting stay as they were.
 NUMERICS = {"knn": "exact", "bf16_grads": False, "seed": 0}
+
+
+def _switch(env, name: str) -> bool:
+    value = env.get(name, "0")
+    if value not in ("0", "1"):
+        raise SystemExit(f"{name}={value}: 0 or 1")
+    return value == "1"
 
 
 def settings(env=os.environ) -> dict:
@@ -83,26 +96,30 @@ def settings(env=os.environ) -> dict:
         "elev": tuple(float(x) for x in
                       env.get("SEG_ELEV", "55,65,75").split(",")),
         "knn": env.get("SEG_KNN", "exact"),
-        "bf16_grads": {"0": False, "1": True}[env.get("SEG_BF16_GRADS",
-                                                      "0")],
+        "bf16_grads": _switch(env, "SEG_BF16_GRADS"),
+        "bf16_replay": _switch(env, "SEG_BF16_REPLAY"),
         "seed": int(env.get("SEG_SEED", "0")),
     }
 
 
 def numerics(s: dict):
-    """The settings' SEG_KNN / SEG_BF16_GRADS / SEG_SEED, or None at their
-    defaults. Off them, SEG_SCENE and SEG_MODEL must not be the defaults,
-    which hold the default run's scene and model."""
+    """The settings' SEG_KNN / SEG_BF16_GRADS / SEG_SEED (and
+    SEG_BF16_REPLAY when it is 1), or None at their defaults. Off them,
+    SEG_SCENE and SEG_MODEL must not be the defaults, which hold the
+    default run's scene and model."""
     if s["knn"] not in ("exact", "bfloat16"):
         raise SystemExit(f"SEG_KNN={s['knn']}: exact or bfloat16")
     num = {k: s[k] for k in NUMERICS}
+    if s["bf16_replay"]:
+        num["bf16_replay"] = True
     if num == NUMERICS:
         return None
     default = settings({})
     if s["scene"] == default["scene"] or s["model"] == default["model"]:
         raise SystemExit(
             f"exp_seg_envelope: SEG_KNN={num['knn']} SEG_BF16_GRADS="
-            f"{int(num['bf16_grads'])} SEG_SEED={num['seed']} needs its own "
+            f"{int(num['bf16_grads'])} SEG_BF16_REPLAY="
+            f"{int(s['bf16_replay'])} SEG_SEED={num['seed']} needs its own "
             f"SEG_SCENE and SEG_MODEL (the defaults, {default['scene']} and "
             f"{default['model']}, hold the default run's scene and model)")
     return num
@@ -110,16 +127,20 @@ def numerics(s: dict):
 
 def numerics_note(num) -> str:
     return (f"tpu_numerics: knn={num['knn']}, bf16_grads="
-            f"{int(num['bf16_grads'])}, seed={num['seed']}")
+            f"{int(num['bf16_grads'])}, "
+            + ("bf16_replay=1, " if num.get("bf16_replay") else "")
+            + f"seed={num['seed']}")
 
 
 def app_cmd(app: str, num=None, train=False) -> list:
     """The command that runs one of the port's apps: `python -m` at the
     default numerics, else through tpu_numerics.py with training's patches
-    (--tpu_knn, --bf16_grads, --seed) or segmentation's (--bf16_grads)."""
+    (--tpu_knn, --bf16_grads, --bf16_replay, --seed) or segmentation's
+    (--bf16_grads, --bf16_replay)."""
     if num is None:
         return [sys.executable, "-m", f"{APPS}.{app}"]
-    flags = ["--bf16_grads"] if num["bf16_grads"] else []
+    flags = ((["--bf16_grads"] if num["bf16_grads"] else [])
+             + (["--bf16_replay"] if num.get("bf16_replay") else []))
     if train:
         flags = ((["--tpu_knn"] if num["knn"] == "bfloat16" else [])
                  + flags + ["--seed", str(num["seed"])])

@@ -2,7 +2,8 @@
 the port, and a runner that enters them around one app's `main`.
 
     python wheat3dgs_tpu_torch/scripts/tpu_numerics.py [--tpu_knn]
-        [--bf16_grads] [--seed N] -- <module> <app arguments>
+        [--bf16_grads] [--bf16_replay] [--seed N] -- <module>
+        <app arguments>
 
 <module> is one of the port's apps (`apps.train_vanilla`,
 `apps.run_3d_seg_app`, or its full dotted name); its `main` runs with the
@@ -17,6 +18,25 @@ app arguments and the patches entered, each restored when it returns.
   JAX's Pallas backward rounds every per-entry gradient column before its
   segment sum (ops/pallas_raster.py:1464-1482). Training's backward and
   the FlashSplat lift (the gradient of an 8-channel render) both reach it.
+- `bf16_replay()`: the backward replay (cuda_raster.composite_bwd, through
+  `rasterize`'s backward) takes its three products from bfloat16
+  operands with float32 sums, as JAX's `_bwd_kernel` computes them on a
+  TPU (ops/pallas_raster.py:964-990): u = gmat . ent, the prefix of w u
+  and the value-row gradients gmat . w. Training and the lift both reach
+  it. It wraps whatever `cuda_raster.composite_bwd` is when it is
+  entered, so enter `cuda_raster.plain_kernels()` before it, not inside
+  it. A CUDA graph (training_graph.StepGraph) captured before it is
+  entered replays the float32 replay it captured, so enter it before any
+  Trainer is built; the runner does.
+- `bf16_fwd()`: sets `cuda_raster.BF16_FWD`, which only the plain
+  training compositor and replay read: the rounding of a one-pass
+  bfloat16 matmul at a TPU's default precision, the log-transmittance
+  prefix adding bfloat16-rounded log1p(-alpha) in both and the image
+  sums taking bfloat16-rounded weights and value rows (JAX's round-3
+  `_fwd_kernel`, commit 54bd0ea, pallas_raster.py:673-689). It has no
+  kernel, and the kernels refuse to run while it is set: densify_trace.py
+  runs it with `--plain` (on the card also `--eager`, as the plain
+  versions read the host).
 - `train_seed(n)`: the Trainer's split-noise generator is seeded with n
   (its default is 0, as JAX's training seeds 0); runs that differ only in
   it give a spread of the port's own, otherwise deterministic, runs.
@@ -61,6 +81,24 @@ def bf16_grads():
             vals.to(torch.bfloat16).float(), start, end))
 
 
+def bf16_replay():
+    """`rasterize`'s backward replay (cuda_raster.composite_bwd) rounds its
+    products' operands to bfloat16 (its bf16_ops) while this is entered."""
+    from wheat3dgs_tpu_torch.ops import cuda_raster
+
+    return mock.patch.object(cuda_raster, "composite_bwd", functools.partial(
+        cuda_raster.composite_bwd, bf16_ops=True))
+
+
+def bf16_fwd():
+    """The plain training compositor and replay round their transmittance
+    prefix and image sums as a TPU's default-precision matmul while this
+    is entered (cuda_raster.BF16_FWD; the kernels refuse to run)."""
+    from wheat3dgs_tpu_torch.ops import cuda_raster
+
+    return mock.patch.object(cuda_raster, "BF16_FWD", True)
+
+
 def train_seed(n: int):
     """Every Trainer built while this is entered seeds its split noise
     with n, unless its caller passes a seed."""
@@ -97,6 +135,7 @@ def main(argv=None):
     ap = ArgumentParser(prog="tpu_numerics.py")
     ap.add_argument("--tpu_knn", action="store_true")
     ap.add_argument("--bf16_grads", action="store_true")
+    ap.add_argument("--bf16_replay", action="store_true")
     ap.add_argument("--seed", type=int, default=None)
     args = ap.parse_args(argv[:cut])
     rest = argv[cut + 1:]
@@ -104,7 +143,8 @@ def main(argv=None):
         raise SystemExit(__doc__)
     app, app_args = app_module(rest[0]), rest[1:]
     print(f"tpu_numerics: {app.__name__} with tpu_knn={args.tpu_knn}, "
-          f"bf16_grads={args.bf16_grads}, seed={args.seed}", file=sys.stderr)
+          f"bf16_grads={args.bf16_grads}, bf16_replay={args.bf16_replay}, "
+          f"seed={args.seed}", file=sys.stderr)
     with contextlib.ExitStack() as stack:
         if args.tpu_knn:
             stack.enter_context(tpu_knn(
@@ -112,6 +152,8 @@ def main(argv=None):
                 if "--device" in app_args else "cuda"))
         if args.bf16_grads:
             stack.enter_context(bf16_grads())
+        if args.bf16_replay:
+            stack.enter_context(bf16_replay())
         if args.seed is not None:
             stack.enter_context(train_seed(args.seed))
         return app.main(app_args)
