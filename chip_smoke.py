@@ -79,7 +79,8 @@ when run outside a checkout of the repo. Phases, each reported on a line:
    image's PNG reads, SSIM + PSNR and LPIPS forward timed alone;
 13. 360 field: `apps/render_360_app.main --render_type field` on the
    stand-in model and phase 10's experiment with run_wheat_3dgs.sh's
-   arguments (200 frames at 800x600, the head overlay), counters reset
+   arguments cut to FIELD_360's 100 frames (the script's 200) at 800x600,
+   the head overlay, counters reset
    just before and read just after: the labels and the video (the app
    itself raises on a frame over its probed budget), frame 0 against the
    plain compositors (colour image within the composite tolerance, the
@@ -88,8 +89,9 @@ when run outside a checkout of the repo. Phases, each reported on a line:
    over the orbits and over the whole run (its budget probes, lift and
    encoding timed apart), and the device's busy share over a few frames
    (torch.profiler);
-14. 360 head: the same with `--render_type head` (100 frames per head at
-   533x400), one video per head PLY without a letter suffix;
+14. 360 head: the same with `--render_type head` (HEAD_360's 50 frames
+   per head, the script's 100, at 533x400), one video per head PLY
+   without a letter suffix;
 15. viewer: `apps/viewer_app.build_viewer` with the field run's labels,
    served on a free port in a thread: /info, /teleport and 20 /render
    requests at 960x720 with and without the overlay and with a head
@@ -102,13 +104,16 @@ when run outside a checkout of the repo. Phases, each reported on a line:
    the traits xlsx, the boxes and the merged PLY of kept points byte-equal
    (so each head's kept set, traits and box), a row per head, seconds a
    head on each device split into cluster, SOR and traits;
-17. pipeline: `wheat3dgs_tpu_torch/scripts/run_wheat_3dgs.sh` on the bench
-   scene into a fresh model dir (DEVICE=cuda, ITERS=PIPELINE_ITERS), each
-   `python` call through a runner that logs its seconds and the kernel
+17. pipeline: `wheat3dgs_tpu_torch/scripts/run_wheat_3dgs.sh` on the
+   pipeline plot (PIPELINE_SCENE: the bench plot's generator at 800x600
+   with 8 heads) into a fresh model dir (DEVICE=cuda, ITERS=PIPELINE_ITERS),
+   each `python` call through a runner that logs its seconds and the kernel
    launches in that process (and whether `python` is on PATH): every step
    exits 0, the saved iteration, results.json, the head PLYs, the eval
    PNGs and all_counts.pt, both 360 mp4 kinds, a traits xlsx with a row per
-   head PLY; then `scripts/eval.sh` on the same model;
+   head PLY; then `scripts/eval.sh` on the same model. Its processes run
+   in a thread beside phases 10-16, as phase 24's do (each process counts
+   its own launches);
 18. the scan probe: each kind of the kernel against its plain version on
    the probe's input and a seeded normal block, and at the cluster's edge
    shapes (8 rows, fewer than its CTAs; 1000 rows, not a multiple of them;
@@ -170,7 +175,7 @@ when run outside a checkout of the repo. Phases, each reported on a line:
    the probed budget (colour, alpha, depth within the composite
    tolerance; pixels off at the stop's T_EPS edge counted under
    STOP_MISMATCH_MAX, as the stop is); (b) at JAX's defaults (tile 16,
-   adapt_config's max_per_tile rung) at 800x600 on the card against the
+   adapt_config's max_per_tile rung) at 400x300 on the card against the
    same render on the CPU (within XLA_CPU_ATOL, edge pixels counted
    likewise); (c) one train_step on (a)'s config against the kernels' step
    from the same state (loss within rel 1e-4, every parameter's first
@@ -205,7 +210,8 @@ when run outside a checkout of the repo. Phases, each reported on a line:
    synthesized in this process and training's first leg to CHAIN_SAVES[0]
    through tpu_numerics.py, the chain resuming it to CHAIN_SAVES[1], then
    `diag_psnr_decline.py` over both saves, every `python` through the
-   step runner, the launch counters reset just before: each step exits 0
+   step runner (the processes in a thread beside phases 10-16), the launch
+   counters reset just before the synthesis: each step exits 0
    (but the chain's first scoring, which has no segmentation yet, as the
    JAX chain's), the envelope report's keys are JAX's with n_discovered
    >= 1, morph_compare.json has n_pairs, the 360 videos and traits are
@@ -234,16 +240,33 @@ when run outside a checkout of the repo. Phases, each reported on a line:
    process in which pandas and matplotlib cannot be imported: the CSVs'
    rows against the file's numbers, the PNG decoded with both splits'
    colours in it;
-27. a `kernels` JSON line, then the device line last.
+27. the distributed steps over NCCL (`nccl_path`): one spawned process,
+   an NCCL rank of a world of one (NCCL refuses two ranks on one card;
+   over one rank a SUM or MAX is the identity), runs the plot x view
+   trainer (NCCL_PLOTS copies of the bench plot x MULTI_VIEWS views) and
+   the view x gauss trainer for DIST_STEPS steps with a densify after
+   step NCCL_DENSIFY_AFTER, the launch counters reset just before and
+   read just after: each step replayed from a CUDA graph (at least two
+   captures, one replay), bit for bit (every state tensor and metric)
+   the same steps under `eager_steps()` and the one-process step
+   (multi_plot_step / train_step_views), with the one-process step's
+   kernel launches; the collectives a step issues, the card's activities
+   of one profiled replay beside the one-process step's, ms a step
+   replayed, eager and in one process; then `apps/train_multi --dist_backend
+   nccl --world_size 1` with phase 19's arguments, its metrics_multi.jsonl
+   (but elapsed_s) and PLYs equal to phase 19's;
+28. a `kernels` JSON line, then the device line last.
 Work files go to `_smoke_work/` in the checkout and are removed on success.
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import json
 import os
 import shutil
+import signal
 import sys
 import time
 
@@ -307,10 +330,11 @@ TRAIN_ITERS = 300
 TRAIN_BLOCK = 39
 BLOCK_CHECK = 8
 DEVICE = "cuda"
-# Phases 12-15 (run_wheat_3dgs.sh's step 2 and 4 arguments, the viewer's
-# CLI default size).
-FIELD_360 = dict(n_frames=200, framerate=20, elevation=45)
-HEAD_360 = dict(n_frames=100, framerate=10, elevation=30)
+# Phases 12-15 (run_wheat_3dgs.sh's step 2 and 4 arguments with the
+# orbits cut to half their frames, 200 and 100, to keep the smoke within
+# its time; the viewer's CLI default size).
+FIELD_360 = dict(n_frames=100, framerate=20, elevation=45)
+HEAD_360 = dict(n_frames=50, framerate=10, elevation=30)
 VIEWER_REQUESTS = 20
 LPIPS_NETS = ("vgg", "alex", "squeeze")
 # metrics on the card against the port's CPU values on the same PNGs:
@@ -335,12 +359,17 @@ MORPHOLOGY = {"file_format": "ply", "subsampling_threshold": 5000,
               "sor_parameters": {"k": 200, "std_ratio": 3},
               "splines_smoothing_value": 1, "distance_percentile": 99,
               "get_bboxes": True, "get_processed_pcd": True}
-# Phase 17: the pipeline script's training iterations, cut from 15,000 (the
-# other seven steps cost about the same at any count), and a limit on each
-# script's run.
+# Phase 17: the pipeline script's plot (the bench plot's generator at half
+# its width and height, with a quarter of its heads and ground: the
+# scripts' eleven processes cost the same at any size, the segmentation
+# path at full size is phase 10), its training iterations, cut from
+# 15,000 (the other seven steps cost about the same at any count), and a
+# limit on each script's run.
+PIPELINE_SCENE = dict(width=800, height=600, n_cams=12, n_heads=8,
+                      pts_per_head=3000, ground_pts=26_000, seed=0)
 PIPELINE_ITERS = 300
 # The pipeline's 360 videos at a tenth of the script's frames (phases
-# 13-14 render the full orbits in process).
+# 13-14 render FIELD_360's and HEAD_360's orbits in process).
 PIPELINE_FRAMES = {"FIELD_FRAMES": "20", "HEAD_FRAMES": "10"}
 SCRIPT_TIMEOUT = 600
 # Phase 19: two bench plots trained together, B views a step, on bench.py's
@@ -351,6 +380,8 @@ SCRIPT_TIMEOUT = 600
 # busy-share window.
 MULTI_ITERS = 200
 MULTI_VIEWS = 2
+MULTI_DENSIFY_FROM = 20
+MULTI_INTERVAL = 40
 MULTI_PLOT = dict(plot_id=462, seed=1, with_masks=False)
 MULTI_RATE_STEPS = 20
 MULTI_RATE_ROUNDS = 3
@@ -375,17 +406,34 @@ DIST_LOSS_RTOL = 1e-5
 DIST_ATOL = 1e-5
 DIST_MOMENT_REL = 1e-4
 DIST_JOIN_TIMEOUT = 400.0
+# Phase 27: one spawned process, an NCCL rank of a world of one (NCCL
+# refuses two ranks on one card; over one rank every SUM and MAX is the
+# identity), runs the plot x view trainer on NCCL_PLOTS copies of the bench
+# plot (MULTI_VIEWS views each) and the view x gauss trainer on the bench
+# plot (MULTI_VIEWS views), DIST_STEPS steps each with a densify after
+# step NCCL_DENSIFY_AFTER, replayed from a CUDA graph; each held bit for
+# bit to its own eager steps and to the one-process step; ms a step timed
+# over NCCL_TIME_REPS calls; then apps/train_multi over NCCL on phase 19's
+# two plots with phase 19's arguments, its files equal to phase 19's.
+NCCL_PLOTS = 2
+NCCL_DENSIFY_AFTER = 2
+NCCL_TIME_REPS = 5
+NCCL_JOIN_TIMEOUT = 300.0
 # Phase 22, the padded-tile ("xla") backend: its tile at full size (the
 # entry stream's 32 px), its pixels x entries per batch of tiles (a float32
-# temporary of ~0.5 GB), the steps of its replayed block, and how far a
+# temporary of ~0.5 GB), the steps of its replayed block (2: a padded-tile
+# step takes ~3.3 s on the H100, and the block runs replayed and twice
+# eagerly), and how far a
 # replayed block may be from eager steps against two eager runs' spread.
 XLA_TILE = 32
 XLA_BATCH_ELEMS = 1 << 27
-XLA_BLOCK = 3
+XLA_BLOCK = 2
 XLA_SPREAD_FACTOR = 2.0
 # The card's padded-tile render against the CPU's (JAX's raster test
-# bound, tests/test_raster.py:113).
+# bound, tests/test_raster.py:113), at 1/XLA_CPU_SHRINK of the view's
+# width and height (the CPU's render at 800x600 took a minute).
 XLA_CPU_ATOL = 2e-5
+XLA_CPU_SHRINK = 4
 # Phase 23, the scene of JAX's exp_bench2 table: exp_bench2's plot (36
 # ring views at 1600x1200) built as each ground truth (colour noise, kNN),
 # in this order: the 0.05 scene of commit 54bd0ea and today's 0.15 one,
@@ -431,7 +479,45 @@ ENVELOPE_KEYS = ["n_gt_heads", "n_discovered", "n_ply_files",
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    stop_scripts()
     sys.exit(1)
+
+
+# The script runs (run_logged) under way, each its own process group.
+SCRIPTS: set = set()
+
+
+def stop_scripts() -> None:
+    """Kill every script run under way with all its steps (on a failure,
+    at exit and on SIGTERM)."""
+    for proc in list(SCRIPTS):
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+
+
+def beside(fn, *args):
+    """Start fn(*args) in a thread; returns a function that waits for it
+    and gives its result, or exits as fn did (fail() in the thread has
+    printed its message)."""
+    import threading
+
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn(*args)
+        except BaseException as exc:    # raised again in the caller
+            box["exc"] = exc
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def join():
+        thread.join()
+        if "exc" in box:
+            raise box["exc"]
+        return box["out"]
+    return join
 
 
 def say(phase: str, **kv) -> None:
@@ -2290,10 +2376,20 @@ def run_logged(cmd: list, env: dict, log_name: str) -> dict:
         cmd = [os.path.join(bindir, "python"), *cmd[1:]]
     out_path = os.path.join(WORK, log_name)
     t0 = time.perf_counter()
+    # A process group of its own, so that a failure stops the script's
+    # steps with it (stop_scripts).
     with open(out_path, "w") as out:
-        proc = subprocess.run(cmd, cwd=ROOT, env=full, stdout=out,
-                              stderr=subprocess.STDOUT,
-                              timeout=SCRIPT_TIMEOUT)
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=full, stdout=out,
+                                stderr=subprocess.STDOUT, process_group=0)
+    SCRIPTS.add(proc)
+    try:
+        proc.wait(timeout=SCRIPT_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        fail(f"{os.path.basename(cmd[1])} ran past {SCRIPT_TIMEOUT} s")
+    finally:
+        SCRIPTS.discard(proc)
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
     seconds = time.perf_counter() - t0
     steps = []
     if os.path.exists(step_log):
@@ -2434,12 +2530,25 @@ def check_bench_kernels(scene_dir: str) -> dict:
     return dict(train=train, render=renders)
 
 
+def make_pipeline_scene() -> str:
+    """Phase 17's plot (PIPELINE_SCENE), made in this thread (the
+    generator renders with the kernels), and the step runner; returns the
+    plot's directory."""
+    from wheat3dgs_tpu_torch.io.synthetic import make_synthetic_colmap_scene
+
+    scene_dir = os.path.join(WORK, "pipeline_scene")
+    make_synthetic_colmap_scene(scene_dir, device=DEVICE, **PIPELINE_SCENE)
+    step_runner()
+    return scene_dir
+
+
 def pipeline_path(scene_dir: str) -> dict:
-    """Phase 17: wheat3dgs_tpu_torch/scripts/run_wheat_3dgs.sh on the bench
-    scene into a fresh model dir (DEVICE=cuda, ITERS=PIPELINE_ITERS, the
-    360 videos at PIPELINE_FRAMES), every
-    step through the port's apps, then scripts/eval.sh on that model; the
-    output tree and each step's seconds and launches."""
+    """Phase 17: wheat3dgs_tpu_torch/scripts/run_wheat_3dgs.sh on the
+    pipeline plot into a fresh model dir (DEVICE=cuda, ITERS=PIPELINE_ITERS,
+    the 360 videos at PIPELINE_FRAMES), every step through the port's apps,
+    then scripts/eval.sh on that model; the output tree and each step's
+    seconds and launches. Runs in a thread beside other phases: nothing
+    here touches this process's launch counters."""
     from wheat3dgs_tpu_torch.ops import cuda_raster as CR
 
     python = {"python": shutil.which("python"),
@@ -2576,6 +2685,22 @@ def check_app_kernels(states, cams, gts, sh_degree: int, opt) -> list:
     return results
 
 
+def multi_argv(scene_dir: str, model_base: str) -> list:
+    """apps/train_multi's arguments in phases 19 and 27: phase 3's scene
+    and phase 19's plot 462, MULTI_ITERS iterations of bench.py's schedule
+    (densify from MULTI_DENSIFY_FROM every MULTI_INTERVAL until
+    MULTI_INTERVAL before the end, no opacity reset), MULTI_VIEWS views a
+    step."""
+    return ["--source_paths", scene_dir, os.path.join(WORK, "plot_462"),
+            "--model_base", model_base, "--device", DEVICE,
+            "--iterations", str(MULTI_ITERS),
+            "--densify_from_iter", str(MULTI_DENSIFY_FROM),
+            "--densification_interval", str(MULTI_INTERVAL),
+            "--densify_until_iter", str(MULTI_ITERS - MULTI_INTERVAL),
+            "--opacity_reset_interval", "100000",
+            "--views_per_step", str(MULTI_VIEWS), "--quiet"]
+
+
 def multi_plot_path(scene_dir: str) -> dict:
     """Phase 19: apps/train_multi on two bench plots (phase 3's scene and
     the generator's plot 462) with MULTI_VIEWS views a step, the launch
@@ -2627,15 +2752,9 @@ def multi_plot_path(scene_dir: str) -> dict:
         return built[-1]
 
     model_base = os.path.join(WORK, "multi_models")
-    n_iter, interval, densify_from = MULTI_ITERS, 40, 20
-    densify_until = n_iter - 40
-    argv = ["--source_paths", scene_dir, plot2, "--model_base", model_base,
-            "--device", DEVICE, "--iterations", str(n_iter),
-            "--densify_from_iter", str(densify_from),
-            "--densification_interval", str(interval),
-            "--densify_until_iter", str(densify_until),
-            "--opacity_reset_interval", "100000",
-            "--views_per_step", str(MULTI_VIEWS), "--quiet"]
+    n_iter, interval = MULTI_ITERS, MULTI_INTERVAL
+    densify_from, densify_until = MULTI_DENSIFY_FROM, n_iter - interval
+    argv = multi_argv(scene_dir, model_base)
     real = train_multi.multi_plot_step
     train_multi.multi_plot_step = factory
     try:
@@ -3043,6 +3162,400 @@ def dist_path(scene_dir: str) -> dict:
                 launches=launches)
 
 
+def nccl_rank(init: str, out_dir: str, scene_dir: str,
+              app_init: str) -> None:
+    """Phase 27, the spawned process: rank 0 of a world of one over NCCL
+    (init_ranks), then nccl_steps; the process group destroyed; then
+    nccl_app with its own group. The result or the traceback into
+    out_dir/rank0.json."""
+    import traceback
+
+    import torch
+
+    global cuda_time_ms
+    sys.path.insert(0, ROOT)
+    from wheat3dgs_tpu_torch.parallel import mesh as TM
+    from wheat3dgs_tpu_torch.utils.cuda_timing import cuda_time_ms
+
+    t_rank = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        ranks = TM.init_ranks("nccl", init, 1, 0)
+        res = {"ok": True, "init_seconds": time.perf_counter() - t0,
+               "torch": torch.__version__, "cuda": torch.version.cuda,
+               "nccl": ".".join(map(str, torch.cuda.nccl.version())),
+               **nccl_steps(ranks, scene_dir)}
+        torch.distributed.destroy_process_group()
+        res["app"] = nccl_app(scene_dir, app_init)
+        res["rank_seconds"] = time.perf_counter() - t_rank
+    except (Exception, SystemExit):       # fail() exits
+        res = {"ok": False, "error": traceback.format_exc()}
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    with open(os.path.join(out_dir, "rank0.json"), "w") as f:
+        json.dump(res, f)
+
+
+@contextlib.contextmanager
+def counting_collectives(counts: dict):
+    """Count the calls of the three collectives the meshes issue, by name,
+    while entered."""
+    from unittest import mock
+
+    import torch.distributed as dist
+
+    with contextlib.ExitStack() as stack:
+        for name in ("all_reduce", "all_gather_into_tensor",
+                     "reduce_scatter_tensor"):
+            real = getattr(dist, name)
+
+            def counted(*a, _real=real, _name=name, **kw):
+                counts[_name] = counts.get(_name, 0) + 1
+                return _real(*a, **kw)
+
+            stack.enter_context(mock.patch.object(dist, name, counted))
+        yield
+
+
+def card_activities(fn) -> dict:
+    """One fn() call under torch.profiler (the card's activities only):
+    the activities by name (kernels, copies, sets), the kernels with
+    "nccl" in their name and the device copies (a graph's copy nodes are
+    named memcpy*)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    card = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            card[e.name] = card.get(e.name, 0) + 1
+    copies = {k: n for k, n in card.items() if "memcpy" in k.lower()}
+    return dict(
+        kernels=sum(n for k, n in card.items()
+                    if k not in copies and not k.startswith(("Memset",
+                                                             "nccl:"))),
+        nccl_kernels={k: n for k, n in card.items()
+                      if "nccl" in k.lower() and not k.startswith("nccl:")},
+        copies=sum(copies.values()), copy_names=copies, names=card)
+
+
+def nccl_calls(fn) -> dict:
+    """The ProcessGroupNCCL calls ("nccl:<collective>") of one fn() call,
+    by name, from torch.profiler's host events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    calls = {}
+    for e in prof.events():
+        if e.name.startswith("nccl:"):
+            calls[e.name] = calls.get(e.name, 0) + 1
+    return calls
+
+
+def nccl_steps(ranks, scene_dir: str) -> dict:
+    """Phase 27's steps on the NCCL rank: for each trainer, DIST_STEPS
+    steps from the bench plot's points3D replayed from a CUDA graph (the
+    launch counters reset just before and read just after), the same
+    steps under eager_steps() and the one-process steps, every state
+    tensor and metric held bit for bit; the graph's captures and replays,
+    the collectives a step issues, the card's activities in one profiled
+    replay against the one-process step's, and ms a step timed eagerly,
+    replayed and in one process."""
+    import torch
+
+    from wheat3dgs_tpu_torch import config as cfg
+    from wheat3dgs_tpu_torch import training as TT
+    from wheat3dgs_tpu_torch.models import gaussians as G
+    from wheat3dgs_tpu_torch.ops import cuda_raster as CR
+    from wheat3dgs_tpu_torch.parallel import mesh as TM
+    from wheat3dgs_tpu_torch.scene import Scene
+    from wheat3dgs_tpu_torch.training_graph import eager_steps
+
+    t_setup = time.perf_counter()
+    dev = ranks.device
+    scene = Scene(cfg.ModelParams(source_path=scene_dir), device=dev)
+    opt = cfg.OptimizationParams()
+    w, h = scene.image_size
+    gts_all = torch.as_tensor(scene.data.train.images, device=dev)
+    cams_all = scene.cam_stack("train")
+    bg = torch.zeros(3, device=dev)
+    extent = float(scene.cameras_extent)
+    b = MULTI_VIEWS
+
+    def generator():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        return gen
+
+    def densify(st):
+        return G.densify_and_prune(st, opt.densify_grad_threshold, 0.005,
+                                   extent, 0.0, opt.percent_dense,
+                                   generator=generator())[0]
+
+    def densify_plots(st):
+        return TM.stack_states([densify(G.map_tensors(lambda x: x[p], st))
+                                for p in range(NCCL_PLOTS)])
+
+    # plot x view: NCCL_PLOTS plots x b views (plot p on train views
+    # p * b .. p * b + b - 1); view x gauss: one plot on views 0 .. b - 1.
+    idx = torch.arange(NCCL_PLOTS * b, device=dev).reshape(NCCL_PLOTS, b)
+    plot_view = dict(
+        state=TM.stack_states([G.map_tensors(torch.clone, scene.gaussians)
+                               for _ in range(NCCL_PLOTS)]),
+        args=(tuple(a[idx] for a in cams_all), gts_all[idx], bg),
+        rows=[TT.plot_scalars(it, it, opt, [extent] * NCCL_PLOTS).to(dev)
+              for it in range(1, DIST_STEPS + 1)],
+        mesh=lambda: TM.make_mesh(1, 1, ranks=ranks),
+        build=TM.build_multi_plot_trainer,
+        one=lambda: TT.multi_plot_step(3, w, h, opt),
+        densify=lambda mesh, st: densify_plots(st),
+        densify_one=densify_plots)
+
+    def gauss_densify(mesh, st):
+        return TM.densify_gauss(
+            mesh, st, grad_threshold=opt.densify_grad_threshold,
+            min_opacity=0.005, extent=extent, max_screen_size=0.0,
+            percent_dense=opt.percent_dense, generator=generator())[0]
+
+    view_gauss = dict(
+        state=G.map_tensors(torch.clone, scene.gaussians),
+        args=(tuple(a[:b] for a in cams_all), gts_all[:b], bg),
+        rows=[TT.step_scalars(it, it, 1, opt, extent)[0].to(dev)
+              for it in range(1, DIST_STEPS + 1)],
+        mesh=lambda: TM.make_gauss_mesh(1, 1, ranks=ranks),
+        build=TM.build_gauss_sharded_trainer,
+        one=lambda: (lambda st, cams, gts, bg_, row: TT.train_step_views(
+            st, cams, gts, bg_, row, sh_degree=3, width=w, height=h,
+            opt=opt)),
+        densify=gauss_densify, densify_one=densify)
+
+    def run(cfg_, mode: str, counts=None):
+        """DIST_STEPS steps of the mesh's step (mode "replayed" or
+        "eager") or of the one-process step ("one"), the densify and an
+        opacity reset after step NCCL_DENSIFY_AFTER; the launches of the
+        run (counters reset just before)."""
+        mesh = cfg_["mesh"]() if mode != "one" else None
+        step = cfg_["one"]() if mode == "one" else cfg_["build"](
+            mesh, 3, w, h, opt)
+        st = G.map_tensors(torch.clone, cfg_["state"])
+        ms = []
+        CR.reset_launches()
+        with eager_steps() if mode == "eager" else contextlib.nullcontext():
+            for it, row in enumerate(cfg_["rows"], 1):
+                with (counting_collectives(counts) if counts is not None
+                      else contextlib.nullcontext()):
+                    st, m = step(st, *cfg_["args"], row)
+                st.adam.step += 1
+                ms.append({k: v.clone() for k, v in m.items()})
+                if it == NCCL_DENSIFY_AFTER:
+                    st = G.reset_opacity(
+                        cfg_["densify_one"](st) if mode == "one"
+                        else cfg_["densify"](mesh, st))
+        torch.cuda.synchronize()
+        return st, ms, dict(CR.launches), step, mesh
+
+    def differ(a, b_) -> list:
+        """Where two runs' states or metrics are not bit-identical: (what,
+        max |a - b|)."""
+        (sa, ma), (sb, mb) = a, b_
+        out = []
+        for i, (x, y) in enumerate(zip(TT.state_tensors(sa),
+                                       TT.state_tensors(sb))):
+            if x.shape != y.shape or not torch.equal(x, y):
+                out.append((f"state tensor {i}", float(
+                    (x.double() - y.double()).abs().max())
+                    if x.shape == y.shape else "shape"))
+        for j, (x, y) in enumerate(zip(ma, mb)):
+            for k in ("loss", "l1", "psnr", "n_alive", "entries_total"):
+                if not torch.equal(x[k].reshape(-1).to(y[k].dtype),
+                                   y[k].reshape(-1)):
+                    out.append((f"step {j + 1} {k}", float(
+                        (x[k].double() - y[k].double()).abs().max())))
+        return out
+
+    out = {"device": str(dev), "captured": ranks.captured,
+           "staged": ranks.staged, "trainers": {},
+           "setup_seconds": time.perf_counter() - t_setup}
+    launches_path = {}
+    for name, cfg_ in (("plot_view", plot_view), ("view_gauss", view_gauss)):
+        t0 = time.perf_counter()
+        counts = {}
+        rs, rms, rl, step, mesh = run(cfg_, "replayed")
+        es, ems, el, _, _ = run(cfg_, "eager", counts)
+        os_, oms, ol, one, _ = run(cfg_, "one")
+        for k, v in rl.items():
+            launches_path[k] = launches_path.get(k, 0) + v
+        where = f"phase 27 {name}"
+        graph = step.graph
+        if not (graph.captures >= 2 and graph.replays >= 1):
+            fail(f"{where}: {graph.captures} captures, {graph.replays} "
+                 "replays")
+        for ref, against in (("its eager steps", (es, ems)),
+                             ("the one-process step", (os_, oms))):
+            bad = differ((rs, rms), against)
+            if bad:
+                fail(f"{where}: replayed steps differ from {ref}: {bad}")
+        if rl != ol or rl != el:
+            fail(f"{where}: launches replayed {rl}, eager {el}, one "
+                 f"process {ol}")
+        per_step = {k: v // DIST_STEPS for k, v in counts.items()}
+        # One profiled call of each, from the runs' final states (the key
+        # unchanged: a replay), then ms a step in turns.
+        def call_r():
+            step(rs, *cfg_["args"], cfg_["rows"][-1])
+
+        def call_o():
+            one(os_, *cfg_["args"], cfg_["rows"][-1])
+
+        eager_step = cfg_["build"](mesh, 3, w, h, opt)
+        st_e = G.map_tensors(torch.clone, rs)
+
+        def call_e():
+            with eager_steps():
+                eager_step(st_e, *cfg_["args"], cfg_["rows"][-1])
+
+        call_r()
+        call_o()
+        t1 = time.perf_counter()
+        prof_r, prof_o = card_activities(call_r), card_activities(call_o)
+        calls_e = nccl_calls(call_e)
+        t2 = time.perf_counter()
+        # NCCL launches no kernel for a communicator of one rank: an
+        # in-place SUM or MAX is nothing and an out-of-place gather or
+        # scatter a device copy. So every collective a step issues must
+        # reach ProcessGroupNCCL (its nccl:<name> call on the host, eager),
+        # and the replay must hold the out-of-place ones' copies beside
+        # the one-process step's; a kernel named nccl counts as well.
+        out_of_place = (per_step.get("all_gather_into_tensor", 0)
+                        + per_step.get("reduce_scatter_tensor", 0))
+        if sum(calls_e.values()) != sum(per_step.values()):
+            fail(f"{where}: an eager step issued {per_step} but reached "
+                 f"ProcessGroupNCCL {calls_e}")
+        if (prof_r["copies"] - prof_o["copies"] < out_of_place
+                and sum(prof_r["nccl_kernels"].values())
+                < sum(per_step.values())):
+            fail(f"{where}: the replay holds {prof_r['copies']} copies and "
+                 f"NCCL kernels {prof_r['nccl_kernels']} against one "
+                 f"process's {prof_o['copies']} copies, for {per_step}")
+
+        times = {"replayed": [], "eager": [], "one_process": []}
+        for _ in range(2):
+            for k, fn in (("replayed", call_r), ("eager", call_e),
+                          ("one_process", call_o)):
+                times[k].append(cuda_time_ms(fn, NCCL_TIME_REPS, warmup=1))
+        out["trainers"][name] = dict(
+            captures=graph.captures, replays=graph.replays,
+            capture_seconds=graph.capture_seconds,
+            collectives_per_step=per_step,
+            eager_nccl_calls=calls_e,
+            replay_nccl_kernels=prof_r["nccl_kernels"],
+            replay_copies=prof_r["copy_names"],
+            replay_kernels=prof_r["kernels"],
+            one_process_kernels=prof_o["kernels"],
+            one_process_copies=prof_o["copy_names"],
+            kernels_only_in_replay={
+                k: n - prof_o["names"].get(k, 0)
+                for k, n in prof_r["names"].items()
+                if n > prof_o["names"].get(k, 0)},
+            ms={k: min(v) for k, v in times.items()}, ms_turns=times,
+            launches=rl, n_alive=int(rms[-1]["n_alive"].reshape(-1)[0]),
+            loss=[float(m["loss"].reshape(-1)[0]) for m in rms],
+            seconds=time.perf_counter() - t0, runs_seconds=t1 - t0,
+            profile_seconds=t2 - t1, timing_seconds=time.perf_counter() - t2)
+        graph.release()
+        one_graph = getattr(one, "graph", None)
+        if one_graph is not None:
+            one_graph.release()
+    out["launches"] = launches_path
+    return out
+
+
+def nccl_app(scene_dir: str, init: str) -> dict:
+    """Phase 27's app run on the NCCL rank: apps/train_multi over a world
+    of one with phase 19's arguments (its own process group), the launch
+    counters reset just before; its metrics_multi.jsonl (but each record's
+    elapsed_s) and PLYs equal to phase 19's."""
+    import filecmp
+
+    from wheat3dgs_tpu_torch.apps import train_multi
+    from wheat3dgs_tpu_torch.ops import cuda_raster as CR
+
+    base = os.path.join(WORK, "nccl_models")
+    ref = os.path.join(WORK, "multi_models")
+    argv = multi_argv(scene_dir, base) + [
+        "--dist_backend", "nccl", "--dist_init", init, "--world_size", "1",
+        "--rank", "0"]
+    CR.reset_launches()
+    t0 = time.perf_counter()
+    train_multi.main(argv)
+    seconds = time.perf_counter() - t0
+    launches = dict(CR.launches)
+
+    def log(d):
+        with open(os.path.join(d, "metrics_multi.jsonl")) as f:
+            return [{k: v for k, v in json.loads(ln).items()
+                     if k != "elapsed_s"} for ln in f]
+
+    got, want = log(base), log(ref)
+    if got != want:
+        fail(f"phase 27: the NCCL app's log {got} against one process's "
+             f"{want}")
+    plys = []
+    for plot in ("scene", "plot_462"):
+        rel = os.path.join(plot, "point_cloud", f"iteration_{MULTI_ITERS}",
+                           "point_cloud.ply")
+        if not filecmp.cmp(os.path.join(base, rel), os.path.join(ref, rel),
+                           shallow=False):
+            fail(f"phase 27: the NCCL app's {rel} differs from one "
+                 "process's")
+        plys.append(rel)
+    return dict(seconds=seconds, launches=launches, records=len(got),
+                last=got[-1], plys_equal=plys)
+
+
+def nccl_path(scene_dir: str) -> dict:
+    """Phase 27: one process spawned on this card, an NCCL rank of a world
+    of one (nccl_rank), joined with its timeout; its launches (the
+    replayed steps of both trainers and the app run, each with its
+    counters reset just before)."""
+    import torch.multiprocessing as mp
+
+    out_dir = os.path.join(WORK, "nccl")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    ctx = mp.get_context("spawn")
+    proc = ctx.Process(target=nccl_rank, args=(
+        "file://" + os.path.join(out_dir, "init"), out_dir, scene_dir,
+        "file://" + os.path.join(out_dir, "app_init")))
+    t0 = time.perf_counter()
+    proc.start()
+    proc.join(NCCL_JOIN_TIMEOUT)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+        fail("phase 27: the NCCL rank did not finish")
+    path = os.path.join(out_dir, "rank0.json")
+    if not os.path.exists(path):
+        fail(f"phase 27: the NCCL rank exited {proc.exitcode} without a "
+             "result")
+    with open(path) as f:
+        res = json.load(f)
+    if not res["ok"]:
+        fail(f"phase 27: the NCCL rank:\n{res['error']}")
+    res["steps_launches"] = res.pop("launches")
+    launches = {k: n + res["app"]["launches"][k]
+                for k, n in res["steps_launches"].items()}
+    return dict(seconds=time.perf_counter() - t0, launches=launches, **res)
+
+
 def _state_copy(st):
     from wheat3dgs_tpu_torch.models import gaussians as G
 
@@ -3151,9 +3664,9 @@ def xla_path(scene_dir: str, model_dir: str) -> dict:
                 tolerance={"atol": COMPOSITE_ATOL, "rtol": COMPOSITE_RTOL})
     del out_x, out_k
 
-    # (b) JAX's defaults at half size, card against CPU. The CPU's render
-    # (about a minute) runs in a thread beside (c) and (d).
-    hw, hh = w // 2, h // 2
+    # (b) JAX's defaults at a quarter of the size, card against CPU. The
+    # CPU's render runs in a thread beside (c) and (d).
+    hw, hh = w // XLA_CPU_SHRINK, h // XLA_CPU_SHRINK
     hconf = adapt_config(st, cam, hw, hh, RasterConfig(backend="xla"))
     out_g = render_fwd(st, *cam, hw, hh, deg, config=hconf)
     card = {k: getattr(out_g, k).cpu() for k in ("color", "alpha", "depth")}
@@ -3279,12 +3792,12 @@ def xla_path(scene_dir: str, model_dir: str) -> dict:
     if off_b > STOP_MISMATCH_MAX * hw * hh:
         fail(f"phase 22 (b): card and CPU differ on {off_b} pixels (max abs"
              f" err {err_b})")
-    half = dict(size=[hw, hh], tile=hconf.tile,
-                max_tiles_per_gauss=hconf.max_tiles_per_gauss,
-                max_per_tile=hconf.max_per_tile,
-                tile_batch=hconf.tile_batch, pixels_off=off_b,
-                max_abs_err=err_b, max_abs_err_on_pixels=err_b_on,
-                atol=XLA_CPU_ATOL, cpu_seconds=on_cpu["seconds"])
+    vs_cpu = dict(size=[hw, hh], tile=hconf.tile,
+                  max_tiles_per_gauss=hconf.max_tiles_per_gauss,
+                  max_per_tile=hconf.max_per_tile,
+                  tile_batch=hconf.tile_batch, pixels_off=off_b,
+                  max_abs_err=err_b, max_abs_err_on_pixels=err_b_on,
+                  atol=XLA_CPU_ATOL, cpu_seconds=on_cpu["seconds"])
     del st_cpu, on_cpu, card
 
     # (e) times on the card, each backend.
@@ -3303,7 +3816,7 @@ def xla_path(scene_dir: str, model_dir: str) -> dict:
         train_step_xla_ms=t_step(xconf),
         train_step_kernels_ms=t_step(tconf))
     return dict(seconds=time.perf_counter() - t_start, full=full,
-                half=half, train_step=train, block=blk, times=times,
+                vs_cpu=vs_cpu, train_step=train, block=blk, times=times,
                 peak_memory_gib=peak, allow_tf32=tf32, capacity=st.capacity)
 
 
@@ -3503,15 +4016,66 @@ def _load_script(name: str):
     return mod
 
 
-def envelope_chain() -> dict:
+def envelope_chain_start() -> dict:
+    """Phase 24's first part: the scene synthesized in this process with
+    the launch counters reset just before, then the chain's processes
+    started in a thread (chain_runs); envelope_chain() takes what this
+    returns, waits for them and checks the chain."""
+    from wheat3dgs_tpu_torch.ops import cuda_raster as CR
+
+    env_mod = _load_script("exp_seg_envelope")
+    scene_dir = os.path.join(WORK, "chain_scene")
+    model_dir = os.path.join(WORK, "chain_model")
+    env = dict(CHAIN_ENV, SEG_SCENE=scene_dir, SEG_MODEL=model_dir,
+               DEVICE=DEVICE, SMOKE_SHIM=os.path.join(step_runner(),
+                                                      "python"),
+               PYTHONPATH=os.pathsep.join(
+                   [ROOT] + ([os.environ["PYTHONPATH"]]
+                             if os.environ.get("PYTHONPATH") else [])))
+    s = env_mod.settings(env)
+    num = env_mod.numerics(s)
+    CR.reset_launches()
+    t0 = time.perf_counter()
+    env_mod.synthesize(s, DEVICE)
+    synth_seconds = time.perf_counter() - t0
+    synth_launches = dict(CR.launches)
+    first = env_mod.train_cmd(scene_dir, model_dir, CHAIN_SAVES[0], DEVICE,
+                              num)
+    return dict(scene_dir=scene_dir, model_dir=model_dir,
+                synth_seconds=synth_seconds, synth_launches=synth_launches,
+                runs=beside(chain_runs, env, first, model_dir))
+
+
+def chain_runs(env: dict, first: list, model_dir: str) -> dict:
+    """Phase 24's processes: training to CHAIN_SAVES[0] through
+    tpu_numerics.py, exp_round5_final.sh to CHAIN_SAVES[1], then the diag
+    over both saves; each run as run_logged reports it, and their
+    seconds together."""
+    t0 = time.perf_counter()
+    leg = run_logged(["python", *first[1:]], env, "chain_leg1.log")
+    chain = run_logged(
+        ["bash", os.path.join(ROOT, "wheat3dgs_tpu_torch", "scripts",
+                              "exp_round5_final.sh")],
+        dict(env, ITERS=str(CHAIN_SAVES[1])), "chain.log")
+    diag = run_logged(
+        ["python", os.path.join(ROOT, "wheat3dgs_tpu_torch", "scripts",
+                                "diag_psnr_decline.py"), "-m", model_dir,
+         "--iterations", *map(str, CHAIN_SAVES), "--device", DEVICE],
+        env, "chain_diag.log")
+    return dict(leg=leg, chain=chain, diag=diag,
+                seconds=time.perf_counter() - t0)
+
+
+def envelope_chain(started: dict) -> dict:
     """Phase 24: the envelope chain on the card at CHAIN_ENV. The scene
     synthesized in this process (exp_seg_envelope.synthesize, the TPU kNN's
     ground truth), training to CHAIN_SAVES[0] through tpu_numerics.py
     (--tpu_knn --bf16_grads --seed), exp_round5_final.sh with ITERS =
     CHAIN_SAVES[1] (training resumes from the first leg's checkpoint), then
     diag_psnr_decline.py over both saves, every `python` through
-    STEP_RUNNER with the launch counters of this process reset just before:
-    each command exits 0, the envelope report has JAX's keys, its note the
+    STEP_RUNNER (envelope_chain_start, which resets the launch counters of
+    this process just before the synthesis, and chain_runs): each command
+    exits 0, the envelope report has JAX's keys, its note the
     numerics, and n_discovered >= 1, morph_compare.json has n_pairs, the
     360 videos and the traits are written, the diag prints a row of both
     splits for each save at demand / budget <= 1, and each of the path's
@@ -3531,36 +4095,12 @@ def envelope_chain() -> dict:
     from wheat3dgs_tpu_torch.seg import flashsplat
     from wheat3dgs_tpu_torch.utils import image_ops
 
-    t_start = time.perf_counter()
-    env_mod = _load_script("exp_seg_envelope")
+    runs = started["runs"]()
+    t_end = time.perf_counter()
     numerics = _load_script("tpu_numerics")
-    scene_dir = os.path.join(WORK, "chain_scene")
-    model_dir = os.path.join(WORK, "chain_model")
-    env = dict(CHAIN_ENV, SEG_SCENE=scene_dir, SEG_MODEL=model_dir,
-               DEVICE=DEVICE, SMOKE_SHIM=os.path.join(step_runner(),
-                                                      "python"),
-               PYTHONPATH=os.pathsep.join(
-                   [ROOT] + ([os.environ["PYTHONPATH"]]
-                             if os.environ.get("PYTHONPATH") else [])))
-    s = env_mod.settings(env)
-    num = env_mod.numerics(s)
-    CR.reset_launches()
-    t0 = time.perf_counter()
-    env_mod.synthesize(s, DEVICE)
-    synth_seconds = time.perf_counter() - t0
-    synth_launches = dict(CR.launches)
-    first = env_mod.train_cmd(scene_dir, model_dir, CHAIN_SAVES[0], DEVICE,
-                              num)
-    leg = run_logged(["python", *first[1:]], env, "chain_leg1.log")
-    chain = run_logged(
-        ["bash", os.path.join(ROOT, "wheat3dgs_tpu_torch", "scripts",
-                              "exp_round5_final.sh")],
-        dict(env, ITERS=str(CHAIN_SAVES[1])), "chain.log")
-    diag = run_logged(
-        ["python", os.path.join(ROOT, "wheat3dgs_tpu_torch", "scripts",
-                                "diag_psnr_decline.py"), "-m", model_dir,
-         "--iterations", *map(str, CHAIN_SAVES), "--device", DEVICE],
-        env, "chain_diag.log")
+    scene_dir, model_dir = started["scene_dir"], started["model_dir"]
+    synth_launches = started["synth_launches"]
+    leg, chain, diag = runs["leg"], runs["chain"], runs["diag"]
     launches = {k: synth_launches[k] + leg["launches"][k]
                 + chain["launches"][k] + diag["launches"][k]
                 for k in CR.launches}
@@ -3635,8 +4175,12 @@ def envelope_chain() -> dict:
     if not exact[True] or not all(exact[True]) or all(exact[False]):
         fail(f"phase 24: segsum inputs bfloat16-exact under bf16_grads "
              f"{exact[True]}, without {exact[False]}")
-    return dict(seconds=time.perf_counter() - t_start,
-                synth_seconds=synth_seconds, leg_seconds=leg["seconds"],
+    # Its seconds: the synthesis, the processes and this part (the
+    # processes ran beside other phases).
+    return dict(seconds=started["synth_seconds"] + runs["seconds"]
+                + time.perf_counter() - t_end,
+                synth_seconds=started["synth_seconds"],
+                leg_seconds=leg["seconds"],
                 chain_seconds=chain["seconds"],
                 diag_seconds=diag["seconds"], launches=launches,
                 steps=[(st["step"], round(st["seconds"], 2), st["exit"])
@@ -3998,6 +4542,9 @@ def main() -> None:
     except ImportError as exc:
         fail(f"the port is not importable next to this script ({exc})")
     T_START = t_start = time.perf_counter()
+    atexit.register(stop_scripts)
+    signal.signal(signal.SIGTERM,
+                  lambda *_: (stop_scripts(), os._exit(143)))
 
     # 1. device
     smi = smi_line()
@@ -4096,6 +4643,13 @@ def main() -> None:
         segsum=sseg, composite_fwd=scomp, lift_batch8=lift)
     del scene
 
+    # 17 and 24: the pipeline script and eval.sh on a fresh model of
+    # their own plot, and the envelope chain's processes, each in a thread
+    # beside phases 10-16 (which time nothing on the card); both are done
+    # before phase 18.
+    pipeline = beside(pipeline_path, make_pipeline_scene())
+    chain = envelope_chain_start()
+
     # 10. the segmentation path
     sp = seg_path(scene_dir, model_dir)
     say("seg_path", **sp)
@@ -4150,8 +4704,9 @@ def main() -> None:
         f"{max(mo['kept_points'])} kept points, files equal on both "
         f"devices; {smi}", flush=True)
 
-    # 17. the pipeline script, then eval.sh, on a fresh model
-    pp = pipeline_path(scene_dir)
+    # 17. the pipeline script, then eval.sh (and phase 24's processes)
+    pp = pipeline()
+    chain["runs"]()
     say("pipeline_path", **pp)
     print(f"pipeline: {pp['seconds']:.1f} s (" + ", ".join(
         f"{st['step'].split('.')[-1]} {st['seconds']:.1f}"
@@ -4226,8 +4781,8 @@ def main() -> None:
           f"kernels' render (max abs err "
           f"{xp['full']['max_abs_err_on_pixels']:.2e} elsewhere) at tile "
           f"{XLA_TILE}, K {xp['full']['max_per_tile']}; card against CPU "
-          f"{xp['half']['pixels_off']} pixels off; train_step loss rel err "
-          f"{xp['train_step']['loss_rel_err']:.2e}, gradients within "
+          f"{xp['vs_cpu']['pixels_off']} pixels off; train_step loss rel "
+          f"err {xp['train_step']['loss_rel_err']:.2e}, gradients within "
           f"{max(xp['train_step']['grad_rel_of_max'].values()):.2e} of "
           f"their max; block bit-identical {xp['block']['bit_identical']}; "
           f"render_fwd {xp['times']['render_fwd_xla_ms']:.1f} ms (kernels "
@@ -4250,8 +4805,9 @@ def main() -> None:
             for x, b in rs["builds"].items())
         + f"; {rs['seconds']:.1f} s; {smi}", flush=True)
 
-    # 24. the envelope chain on the band's numerics, then the diag
-    ec = envelope_chain()
+    # 24. the envelope chain on the band's numerics, then the diag (its
+    # processes ran beside phases 10-16)
+    ec = envelope_chain(chain)
     say("envelope_chain", **ec)
     rep, diag = ec["report"], ec["diag"]
     print(f"envelope chain: {ec['seconds']:.1f} s (synthesis "
@@ -4284,16 +4840,6 @@ def main() -> None:
         f"launched {br['launches']['composite_bwd_bf16']} BF16 / "
         f"{br['launches']['composite_bwd']} default; {br['seconds']:.1f} s;"
         f" {smi}", flush=True)
-    paths = {"serving": mp, "training": tp, "segmentation": sp,
-             "evaluation": ep, "metrics": mt, "360_field": fp,
-             "360_head": hp, "viewer": vp, "pipeline_script": pp,
-             "eval_script": pp["eval_script"], "multi_plot": mpp,
-             "bench": bp, "distributed": dp, "reference_scene": rs,
-             "envelope_chain": ec}
-    on_default = {k: r["launches"]["composite_bwd_bf16"]
-                  for k, r in paths.items()}
-    if any(on_default.values()):
-        fail(f"a default path launched the BF16 build: {on_default}")
 
     # 26. the host-only root tools (A14)
     rt = root_tools_path(scene_dir)
@@ -4303,6 +4849,34 @@ def main() -> None:
           f"{rt['process_seconds']['vis_cam']:.1f} s ({rt['png_size'][0]}x"
           f"{rt['png_size'][1]}, {rt['split_pixels']} split pixels), "
           f"without pandas or matplotlib; {smi}", flush=True)
+
+    # 27. the distributed steps over NCCL (a world of one), replayed
+    npth = nccl_path(scene_dir)
+    say("nccl_path", **npth)
+    print("nccl: " + "; ".join(
+        f"{k} {r['captures']} captures / {r['replays']} replays, bit for "
+        f"bit its eager steps and one process, ms a step replayed "
+        f"{r['ms']['replayed']:.3f} / eager {r['ms']['eager']:.3f} / one "
+        f"process {r['ms']['one_process']:.3f}, collectives a step "
+        f"{r['collectives_per_step']} (eager, ProcessGroupNCCL "
+        f"{r['eager_nccl_calls']}), NCCL kernels in a replay "
+        f"{r['replay_nccl_kernels']}, copies {r['replay_copies']} (one "
+        f"process {r['one_process_copies']})"
+        for k, r in npth["trainers"].items())
+        + f"; train_multi over NCCL {npth['app']['seconds']:.1f} s, files "
+        f"equal to one process's; {npth['seconds']:.1f} s (torch "
+        f"{npth['torch']}, NCCL {npth['nccl']}); {smi}", flush=True)
+
+    paths = {"serving": mp, "training": tp, "segmentation": sp,
+             "evaluation": ep, "metrics": mt, "360_field": fp,
+             "360_head": hp, "viewer": vp, "pipeline_script": pp,
+             "eval_script": pp["eval_script"], "multi_plot": mpp,
+             "bench": bp, "distributed": dp, "reference_scene": rs,
+             "envelope_chain": ec, "nccl": npth}
+    on_default = {k: r["launches"]["composite_bwd_bf16"]
+                  for k, r in paths.items()}
+    if any(on_default.values()):
+        fail(f"a default path launched the BF16 build: {on_default}")
 
     src = "wheat3dgs_tpu_torch/csrc/"
     tpu = "wheat3dgs_tpu/ops/pallas_raster.py:"
@@ -4338,7 +4912,8 @@ def main() -> None:
                          "bench": bp["launches"].get(name, 0),
                          "distributed": dp["launches"][name],
                          "reference_scene": rs["launches"][name],
-                         "envelope_chain": ec["launches"][name]},
+                         "envelope_chain": ec["launches"][name],
+                         "nccl": npth["launches"][name]},
                      "segmentation_shapes": [
                          {k: x.get(k) for k in keys} for x in shapes]})
     # The BF16 build's row: launches from phase 25's block (it is on no

@@ -14,6 +14,12 @@ port do the same.
   of its own.
 - Unflagged, the plain replay is the float32 replay: bit-identical rows
   with and without `bf16_ops=False`, and through `rasterize`'s backward.
+  The plain training forward rounds nothing either: its image is
+  bit-identical through `composite_train_fwd` and on a second call, within
+  1e-5 (relative L2) of a float64 numpy construction of the float32
+  forward, and at least CONSTRUCTION_GAIN times nearer it than to the
+  constructions that round the transmittance prefix's addends or the
+  image sums' operands to bfloat16 (JAX's forward keeps both float32).
 - On tests/test_torch_train_raster.py's Pallas scene (40 splats, seed 5,
   48x32, a background), the port's gradients against JAX's
   `rasterize_pallas` (interpret mode, pack_payload=False) twice: under
@@ -31,14 +37,6 @@ port do the same.
 - `SEG_BF16_REPLAY=1` routes exp_seg_envelope.py's training and
   segmentation and exp_round5_final.sh's segmentation through the runner
   with `--bf16_replay`; a value other than 0 or 1 is refused.
-- `bf16_fwd()` (plain route only, `cuda_raster.BF16_FWD`): the flagged
-  training compositor's image against a numpy construction from
-  bfloat16-rounded prefix addends and image-sum operands (rounded by
-  their bits), and at least CONSTRUCTION_GAIN times nearer it than to
-  the constructions that round only one of the two or neither; unflagged
-  compositors unchanged; the kernels refuse while it is set;
-  densify_trace.py's `--bf16_fwd` refuses without `--plain` and, with it,
-  trains a tiny scene with every replay flagged.
 - Without a card, the flagged path asked for the card raises.
 
 The module imports no JAX at its top, so that the `gpu` case runs on the
@@ -180,6 +178,27 @@ def test_unflagged_replay_is_the_float32_replay():
     unflagged = CR.composite_bwd_plain(*args, bf16_ops=False)
     assert torch.equal(rows.view(torch.int32), unflagged.view(torch.int32))
     assert torch.equal(rows, CR.composite_bwd(*args))
+    assert torch.equal(CR.composite_bwd_plain(*args).view(torch.int32),
+                       rows.view(torch.int32))
+    # The training forward: the same bits on every route and call, and the
+    # float32 forward, not a bfloat16-rounded one.
+    fargs = (args[0], args[2], args[3], args[4], args[8], args[9], args[10])
+    img, stop = CR.composite_train_fwd_plain(*fargs)
+    for again, stop_again in (CR.composite_train_fwd_plain(*fargs),
+                              CR.composite_train_fwd(*fargs)):
+        assert torch.equal(again.view(torch.int32), img.view(torch.int32))
+        assert torch.equal(stop_again, stop)
+    assert torch.equal(img.view(torch.int32), args[5].view(torch.int32))
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    dist = {(p, q): rel(img.numpy().astype(np.float64),
+                        _np_train_forward(*fargs, p, q))
+            for p in (False, True) for q in (False, True)}
+    others = [v for k, v in dist.items() if k != (False, False)]
+    assert dist[(False, False)] < 1e-5, dist
+    assert dist[(False, False)] * CONSTRUCTION_GAIN < min(others), dist
     flagged = CR.composite_bwd_plain(*args, bf16_ops=True)
     assert not torch.equal(rows, flagged)
     # The geometry columns move by the rounding, not beyond it.
@@ -435,12 +454,13 @@ def _bf16_bits(x):
 
 def _np_train_forward(skeys, starts, ends, feat, rank_bits, width, height,
                       round_prefix, round_sums):
-    """JAX's round-3 `_fwd_kernel` per pixel in numpy: alpha with
-    renderCUDA's clamps in float32, the log-transmittance prefix summed in
-    float64 from log1p(-alpha) (its bfloat16 rounding with round_prefix),
-    w = alpha exp(prefix - log1p(-alpha)) while the prefix stays at or
-    above LOG_T_EPS, and the image rows as float64 sums of w times the
-    value rows (both rounded with round_sums). -> (1 + nv, H, W)."""
+    """JAX's `_fwd_kernel` per pixel in numpy: alpha with renderCUDA's
+    clamps in float32, the log-transmittance prefix summed in float64 from
+    log1p(-alpha), w = alpha exp(prefix - log1p(-alpha)) while the prefix
+    stays at or above LOG_T_EPS, and the image rows as float64 sums of w
+    times the value rows. round_prefix rounds the prefix's addends and
+    round_sums both factors of the image sums to bfloat16, as a one-pass
+    bfloat16 matmul would. -> (1 + nv, H, W)."""
     skeys, starts, ends, feat = (t.numpy() for t in (skeys, starts, ends,
                                                      feat))
     tile = CR.TILE_PX
@@ -476,81 +496,6 @@ def _np_train_forward(skeys, starts, ends, feat, rank_bits, width, height,
         out[:, ty * tile:(ty + 1) * tile, tx * tile:(tx + 1) * tile] = \
             rows.reshape(1 + nv, tile, tile)
     return out[:, :height, :width]
-
-
-def test_bf16_fwd_forward_against_numpy_construction(capsys):
-    tn = _script("tpu_numerics")
-    args, _ = _replay_inputs()
-    fargs = (args[0], args[2], args[3], args[4], args[8], args[9], args[10])
-    img = CR.composite_train_fwd_plain(*fargs)[0].numpy().astype(np.float64)
-    with tn.bf16_fwd():
-        img_b = CR.composite_train_fwd_plain(*fargs)[0].numpy()
-    assert CR.BF16_FWD is False
-
-    def rel(a, b):
-        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
-
-    np_img = {(p, q): _np_train_forward(*fargs, p, q)
-              for p in (False, True) for q in (False, True)}
-    flagged = {k: rel(img_b, v) for k, v in np_img.items()}
-    unflagged = {k: rel(img, v) for k, v in np_img.items()}
-    with capsys.disabled():
-        print(f"\n|port - numpy| / |numpy| by (round prefix, round sums): "
-              f"bf16_fwd {flagged}, unflagged {unflagged}")
-    for dist, want in ((flagged, (True, True)), (unflagged, (False, False))):
-        others = [v for k, v in dist.items() if k != want]
-        assert dist[want] * CONSTRUCTION_GAIN < min(others)
-        assert dist[want] < 1e-5
-
-
-def test_bf16_fwd_plain_route(tiny_scene, tmp_path):
-    tn = _script("tpu_numerics")
-    args, _ = _replay_inputs()
-    fargs = (args[0], args[2], args[3], args[4], args[8], args[9], args[10])
-    img, stop = CR.composite_train_fwd_plain(*fargs)
-    rows = CR.composite_bwd_plain(*args)
-    with tn.bf16_fwd():
-        img_b, _ = CR.composite_train_fwd(*fargs)
-        rows_b = CR.composite_bwd(*args)
-        # The kernels have no bf16_fwd build and refuse while it is set.
-        for name in ("composite_train_fwd", "composite_bwd"):
-            with pytest.raises(RuntimeError, match="BF16_FWD has no kernel"):
-                CR._no_bf16_fwd(name)
-    assert CR.BF16_FWD is False
-    assert not torch.equal(img, img_b)
-    assert float((img - img_b).abs().max()) < 0.05
-    assert not torch.equal(rows, rows_b)
-    # Unflagged, both are as they were, bit for bit.
-    assert torch.equal(CR.composite_train_fwd_plain(*fargs)[0].view(
-        torch.int32), img.view(torch.int32))
-    assert torch.equal(CR.composite_bwd_plain(*args), rows)
-    CR._no_bf16_fwd("composite_bwd")
-    tr = _script("densify_trace")
-    train = ["--", "-s", tiny_scene, "-m", str(tmp_path / "m"), "--device",
-             "cpu", "--iterations", "20", "--densify_from_iter", "10",
-             "--densification_interval", "20", "--test_iterations", "20",
-             "--save_iterations", "20"]
-    with pytest.raises(SystemExit):
-        tr.run(["--bf16_fwd", *train])
-    assert not (tmp_path / "m").exists()
-    fwd, bwd = CR.composite_train_fwd, CR.composite_bwd
-    seen, spy = _recording()
-    flags = []
-    plain = CR.composite_train_fwd_plain
-
-    def fwd_spy(*a, **kw):
-        flags.append(CR.BF16_FWD)
-        return plain(*a, **kw)
-
-    with spy, mock.patch.object(CR, "composite_train_fwd_plain", fwd_spy):
-        recs = tr.run(["--plain", "--eager", "--bf16_replay", "--bf16_fwd",
-                       *train])
-    assert sorted(recs) == [20]
-    # --plain's replay, flagged by --bf16_replay, on every step.
-    assert len(seen) >= 20 and all(seen)
-    assert len(flags) >= 20 and all(flags)
-    assert (CR.composite_train_fwd, CR.composite_bwd) == (fwd, bwd)
-    assert CR.BF16_FWD is False
 
 
 def test_flagged_path_refuses_without_card(tmp_path, tiny_scene):

@@ -32,9 +32,22 @@ within atol 1e-5; each Adam moment and grad_accum within 1e-4 of its max
 - apps/train_multi over 4 ranks (2 plots x 2 views) against the app in
   one process: its log and PLYs;
 - the checks: an unknown backend, a rank outside the world, an NCCL rank
-  without its own card.
+  without its own card;
+- when a step over ranks is replayed from a CUDA graph, decided from the
+  `Ranks` alone (no process group): staged gloo on CUDA tensors and gloo
+  on the CPU run eagerly, NCCL is captured;
+- a world of one gloo rank in the test's own process, for each trainer:
+  its training.MultiPlotStep (the reduce's collectives are the identity
+  over one rank) bit for bit the one-process step through a densify (and
+  an opacity reset) after the second of three steps: every state tensor
+  and every metric `torch.equal`;
+- on a card (`gpu`; `python -m pytest --noconftest -q -m gpu
+  tests/test_torch_dist.py`): a world of one NCCL rank, each trainer's
+  steps replayed from a CUDA graph bit for bit its own eager steps
+  (`training_graph.eager_steps`) and the one-process steps.
 """
 
+import functools
 import json
 import os
 import traceback
@@ -45,6 +58,7 @@ import torch
 import torch.multiprocessing as mp
 
 from wheat3dgs_tpu_torch import training as TT
+from wheat3dgs_tpu_torch import training_graph as TGR
 from wheat3dgs_tpu_torch.config import OptimizationParams
 from wheat3dgs_tpu_torch.io.synthetic import _ring_cameras, cam_args
 from wheat3dgs_tpu_torch.models import gaussians as TG
@@ -531,3 +545,178 @@ def test_init_ranks_checks(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="one rank per card"):
         TM.init_ranks("nccl", init, 2, 1)
     assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.parametrize("backend,device,staged,captured", [
+    ("gloo", "cpu", False, False), ("gloo", "cuda", True, False),
+    ("nccl", "cuda", False, True)])
+def test_capture_decision(monkeypatch, backend, device, staged, captured):
+    """Ranks values alone decide: a staged reduce (gloo on CUDA tensors)
+    and a CPU rank run the step eagerly, NCCL replays it from a graph.
+    The step built with that decision goes through its StepGraph only
+    when captured (here on CPU tensors, where a StepGraph runs eagerly
+    too)."""
+    ranks = TM.Ranks(backend, 2, 1, torch.device(device))
+    assert (ranks.staged, ranks.captured) == (staged, captured)
+    runs = []
+    real = TGR.StepGraph.run
+
+    def run(self, step, n, key, dev):
+        runs.append(n)
+        return real(self, step, n, key, dev)
+
+    monkeypatch.setattr(TGR.StepGraph, "run", run)
+    state, cams, gts = _plot(0, 1)
+    step = TT.multi_plot_step(SH, W, H, OptimizationParams(),
+                              capture=ranks.captured)
+    states = TM.stack_states([state])
+    row = TT.plot_scalars(1, 1, OptimizationParams(), [1.0])
+    states, m = step(states, tuple(a[None] for a in cams), gts[None],
+                     torch.zeros(3), row)
+    assert runs == ([1] if captured else [])
+    assert torch.isfinite(m["loss"]).all()
+
+
+@pytest.fixture
+def world_of_one(tmp_path):
+    """A gloo group of one rank in this process, destroyed after."""
+    ranks = TM.init_ranks("gloo", "file://" + str(tmp_path / "init1"), 1, 0)
+    try:
+        yield ranks
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _equal_states(got: TG.GaussianState, ref: TG.GaussianState, where=""):
+    for i, (a, b) in enumerate(zip(TT.state_tensors(got),
+                                   TT.state_tensors(ref))):
+        assert a.shape == b.shape and torch.equal(a, b), f"{where}tensor {i}"
+    assert got.adam.step == ref.adam.step
+
+
+def _noise(cap: int) -> torch.Tensor:
+    return torch.as_tensor(np.random.default_rng(7).standard_normal(
+        (2, cap, 3)), dtype=torch.float32)
+
+
+def _densify_stack(states: TG.GaussianState) -> TG.GaussianState:
+    """densify_and_prune of every plot of a stack (one split noise), then
+    the opacity reset: new tensors, so a captured step recaptures."""
+    noise = _noise(states.alive.shape[1]).to(states.alive.device)
+    plots = [TG.densify_and_prune(TG.map_tensors(lambda x: x[p], states),
+                                  noise=noise, **DENSIFY)[0]
+             for p in range(states.alive.shape[0])]
+    return TG.reset_opacity(TM.stack_states(plots))
+
+
+def _plot_view_steps(ranks, dev: str):
+    """STEPS steps of build_multi_plot_trainer over a 1x1 mesh of `ranks`
+    (2 plots x 2 views) and of the one-process multi_plot_step from the
+    same states, a densify after the second: (mesh's states, metrics,
+    step), (one process's states, metrics)."""
+    opt = OptimizationParams()
+    plots = [_plot(p, 2) for p in range(2)]
+    states = TG.map_tensors(lambda x: x.to(dev),
+                            TM.stack_states([p[0] for p in plots]))
+    cams = tuple(torch.stack([p[1][i] for p in plots]).to(dev)
+                 for i in range(5))
+    gts = torch.stack([p[2] for p in plots]).to(dev)
+    bg = torch.tensor(BG_PLOTS, device=dev)
+    mesh = TM.make_mesh(1, 1, ranks=ranks)
+    step = TM.build_multi_plot_trainer(mesh, SH, W, H, opt)
+    out = []
+    for make in (lambda: step, lambda: TT.multi_plot_step(SH, W, H, opt)):
+        run, st, ms = make(), TG.map_tensors(torch.clone, states), []
+        for it in range(1, STEPS + 1):
+            row = TT.plot_scalars(it, st.adam.step + 1, opt,
+                                  [1.0, 1.5]).to(dev)
+            st, m = run(st, cams, gts, bg, row)
+            st.adam.step += 1
+            ms.append(m)
+            if it == 2:
+                st = _densify_stack(st)
+        out.append((st, ms))
+    return out[0] + (step,), out[1]
+
+
+def _view_gauss_steps(ranks, dev: str):
+    """As _plot_view_steps for build_gauss_sharded_trainer over a 1x1
+    (view, gauss) mesh, densified through densify_gauss, against
+    train_step_views on the whole state and densify_and_prune."""
+    opt = OptimizationParams()
+    state, cams, gts = _plot(3, 2)
+    state = TG.map_tensors(lambda x: x.to(dev), state)
+    cams = tuple(a.to(dev) for a in cams)
+    gts, bg = gts.to(dev), torch.zeros(3, device=dev)
+    mesh = TM.make_gauss_mesh(1, 1, ranks=ranks)
+    step = TM.build_gauss_sharded_trainer(mesh, SH, W, H, opt)
+    noise = _noise(CAP).to(dev)
+    out = []
+    for run, densify in (
+            (step, lambda st: TM.densify_gauss(mesh, st, noise=noise,
+                                               **DENSIFY)[0]),
+            (functools.partial(TT.train_step_views, sh_degree=SH, width=W,
+                               height=H, opt=opt),
+             lambda st: TG.densify_and_prune(st, noise=noise,
+                                             **DENSIFY)[0])):
+        st, ms = TG.map_tensors(torch.clone, state), []
+        for it in range(1, STEPS + 1):
+            row = TT.step_scalars(it, st.adam.step + 1, 1, opt,
+                                  1.0)[0].to(dev)
+            st, m = run(st, cams, gts, bg, row)
+            st.adam.step += 1
+            ms.append(m)
+            if it == 2:
+                st = TG.reset_opacity(densify(st))
+        out.append((st, ms))
+    return out[0] + (step,), out[1]
+
+
+TRAINERS = {"plot_view": _plot_view_steps, "view_gauss": _view_gauss_steps}
+
+
+def _hold_bitwise(mine, ref):
+    (st, ms, _), (ref_st, ref_ms) = mine, ref
+    _equal_states(st, ref_st)
+    for i, (m, r) in enumerate(zip(ms, ref_ms)):
+        for k in METRICS:
+            got, want = m[k], r[k]
+            assert got.dtype == want.dtype and torch.equal(
+                got.reshape(-1), want.reshape(-1)), f"step {i + 1} {k}"
+
+
+@pytest.mark.parametrize("trainer", sorted(TRAINERS))
+def test_world_of_one_gloo_rank_equals_one_process(world_of_one, trainer):
+    """Over one gloo rank on the CPU each trainer is a MultiPlotStep
+    carrying its reduce, run eagerly (the decision of Ranks.captured), and
+    bit for bit the one-process step through a densify: the identity
+    collectives and the reduce's other route (GaussRows' gathered rows,
+    ViewReduce's flat buffers) change no bit."""
+    mine, ref = TRAINERS[trainer](world_of_one, "cpu")
+    step = mine[2] if trainer == "plot_view" else mine[2].step
+    assert isinstance(step, TT.MultiPlotStep)
+    assert step.capture is False and step.reduce is not None
+    assert step.graph.captures == 0
+    _hold_bitwise(mine, ref)
+
+
+@pytest.mark.gpu
+def test_nccl_world_of_one_replays_equal_eager(tmp_path):
+    """A world of one NCCL rank on the card: each trainer's steps replayed
+    from a CUDA graph (two captures, the second after the densify) bit for
+    bit the same steps under eager_steps() and the one-process steps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    ranks = TM.init_ranks("nccl", "file://" + str(tmp_path / "init"), 1, 0)
+    try:
+        assert ranks.captured
+        for name, steps in sorted(TRAINERS.items()):
+            mine, ref = steps(ranks, "cuda")
+            graph = mine[2].graph
+            assert (graph.captures, graph.replays) == (2, 1), name
+            with TGR.eager_steps():
+                eager, _ = steps(ranks, "cuda")
+            _hold_bitwise(mine, eager[:2])
+            _hold_bitwise(mine, ref)
+    finally:
+        torch.distributed.destroy_process_group()

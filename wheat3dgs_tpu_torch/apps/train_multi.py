@@ -35,7 +35,11 @@ given in full: `--dist_backend gloo|nccl --dist_init <address>
 (plot, view) mesh is factored over the N ranks by JAX's rule and must use
 all of them; a rank trains its plot group's plots on its share of each
 step's views (parallel.mesh.build_multi_plot_trainer: the gradients
-all-reduced over the view group before Adam). Every rank draws every
+all-reduced over the view group before Adam). Over NCCL that step, its
+collectives included, is replayed from a CUDA graph as the one-process
+step is; over gloo it runs eagerly (gloo's collectives on CUDA tensors
+are staged through the host). The capacity's MAX and the log's gather
+read the host, between steps. Every rank draws every
 plot's view picks and split noise, so its plots see what they would in
 one process; the capacity doubling is decided over all plots (a MAX over
 the ranks). Rank 0 writes metrics_multi.jsonl (every plot's numbers,

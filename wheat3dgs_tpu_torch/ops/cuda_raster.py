@@ -47,8 +47,7 @@ the port always composites exact float32, which is the JAX path with
 pack_payload=False. Only on request does the backward replay round what
 JAX's `_bwd_kernel` rounds on a TPU: `composite_bwd(..., bf16_ops=True)`
 (scripts/tpu_numerics.py's `bf16_replay()` routes `rasterize`'s backward
-there). `BF16_FWD` (its `bf16_fwd()`) rounds the plain training
-compositor and replay as JAX's round-3 forward did; it has no kernel.
+there).
 """
 
 from __future__ import annotations
@@ -286,7 +285,7 @@ def _chunk_alpha(feat_r, rank, pos, valid, px, py):
 def _plain_forward(skeys, starts, ends, feat_r, rank_bits: int, width: int,
                    height: int, with_stop: bool, with_counts: bool,
                    keep: Optional[torch.Tensor] = None,
-                   with_contrib: bool = False, bf16_fwd: bool = False):
+                   with_contrib: bool = False):
     """The `_fwd_kernel` / `_fwd_only_kernel` maths per tile and per chunk
     of PLAIN_CHUNK entries (log-space transmittance via a cumsum over the
     chunk), PLAIN_TILE_BATCH tiles at a time so it fits on the card at full
@@ -294,12 +293,7 @@ def _plain_forward(skeys, starts, ends, feat_r, rank_bits: int, width: int,
     only the entries kept in its sub-tile, as the kernels do. Returns
     (image, stop or None, (visited, weighted) or None), and with
     with_contrib the (H, W) int32 count of the entries each pixel included
-    (w > 0, JAX's contrib_num) after them. bf16_fwd: the log-transmittance
-    prefix adds log1p(-alpha) rounded to bfloat16, and the image rows sum
-    bfloat16-rounded weights times bfloat16-rounded value rows in float32,
-    as a one-pass bfloat16 matmul at a TPU's default precision computes
-    JAX's `l1m @ tri` and `acc += ent . w` (the `_fwd_kernel` of commit
-    54bd0ea, pallas_raster.py:673-689)."""
+    (w > 0, JAX's contrib_num) after them."""
     dev = feat_r.device
     nv = feat_r.shape[1] - 6
     tiles_x, tiles_y = num_tiles(width, height, TILE_PX)
@@ -343,18 +337,13 @@ def _plain_forward(skeys, starts, ends, feat_r, rank_bits: int, width: int,
                     & ((px < width) & (py < height))[:, :, None]
                 alpha = torch.where(walk, alpha, torch.zeros_like(alpha))
             l1m = torch.log1p(-alpha)
-            log_t_after = log_t[:, :, None] + torch.cumsum(
-                bf16_round(l1m) if bf16_fwd else l1m, dim=2)
+            log_t_after = log_t[:, :, None] + torch.cumsum(l1m, dim=2)
             include = log_t_after >= LOG_T_EPS
             w = torch.where(include, alpha * torch.exp(log_t_after - l1m),
                             torch.zeros_like(alpha))
             vals = torch.cat([torch.ones_like(f[:, :, :1]), f[:, :, 6:]],
                              dim=2)                            # (B, K, 1+nv)
-            if bf16_fwd:
-                acc += torch.einsum("bpk,bkv->bvp", bf16_round(w),
-                                    bf16_round(vals))
-            else:
-                acc += torch.einsum("bpk,bkv->bvp", w, vals)
+            acc += torch.einsum("bpk,bkv->bvp", w, vals)
             if with_stop:
                 # w > 0 exactly for included live entries (w >= 1e-4/255).
                 last = torch.maximum(last, torch.where(
@@ -403,19 +392,6 @@ def _compositor_shapes(name, skeys, starts, ends, feat_r, width, height):
 def _cuda_only(name: str, t: torch.Tensor) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {t.device}")
-
-
-# Read only by the plain training compositor and replay: True rounds their
-# transmittance prefix and image sums as a TPU's default-precision matmul
-# (JAX's round-3 forward; scripts/tpu_numerics.py's bf16_fwd() sets it).
-# The kernels have no such build and refuse to run while it is set.
-BF16_FWD = False
-
-
-def _no_bf16_fwd(name: str) -> None:
-    if BF16_FWD:
-        raise RuntimeError(f"{name}: BF16_FWD has no kernel; run the plain "
-                           "versions (plain_kernels())")
 
 
 # --- the forward compositors' sub-tile cull -----------------------------------
@@ -545,11 +521,9 @@ def composite_train_fwd_plain(skeys, starts, ends, feat_r, rank_bits: int,
     the (H, W) int32 stop (one past the sorted position of the last entry
     each pixel included; its tile's segment start if none); with_contrib
     also returns the (H, W) int32 count of the entries each pixel
-    included. While BF16_FWD is set, the TPU's default-precision rounding
-    of the prefix and the image sums (`_plain_forward`'s bf16_fwd)."""
+    included."""
     out = _plain_forward(skeys, starts, ends, feat_r, rank_bits, width,
-                         height, True, False, with_contrib=with_contrib,
-                         bf16_fwd=BF16_FWD)
+                         height, True, False, with_contrib=with_contrib)
     return (out[0], out[1], out[3]) if with_contrib else out[:2]
 
 
@@ -564,7 +538,6 @@ def composite_train_fwd(skeys, starts, ends, feat_r, rank_bits: int,
                                          rank_bits, width, height,
                                          with_contrib)
     _cuda_only("composite_train_fwd", feat_r)
-    _no_bf16_fwd("composite_train_fwd")
     tiles_x, tiles_y, nv = _compositor_shapes(
         "composite_train_fwd", skeys, starts, ends, feat_r, width, height)
     if with_contrib and nv != COUNT_NV:
@@ -635,10 +608,7 @@ def composite_bwd_plain(skeys, perm, starts, ends, feat_r, img, stop, grad,
     term, and both factors of d value_v, from bfloat16 operands. The
     weight-sum row's part (g_0 in u, w g_0 in the prefix: JAX's float32
     `a2` / T_final route, pallas_raster.py:913-915, 972-976), A, the
-    transmittance and the geometry sums stay float32. While BF16_FWD is
-    set, the transmittance replay's prefix adds bfloat16-rounded
-    log1p(-alpha), as composite_train_fwd_plain's forward then does, so its
-    weights are the forward's."""
+    transmittance and the geometry sums stay float32."""
     dev = feat_r.device
     nv = feat_r.shape[1] - 6
     tiles_x, tiles_y = num_tiles(width, height, TILE_PX)
@@ -671,8 +641,7 @@ def composite_bwd_plain(skeys, perm, starts, ends, feat_r, img, stop, grad,
             before = pos[:, None, :] < st[:, :, None]          # (B, P, K)
             alpha = torch.where(before, alpha, torch.zeros_like(alpha))
             l1m = torch.log1p(-alpha)
-            log_t_after = log_t[:, :, None] + torch.cumsum(
-                bf16_round(l1m) if BF16_FWD else l1m, dim=2)
+            log_t_after = log_t[:, :, None] + torch.cumsum(l1m, dim=2)
             t_before = torch.exp(log_t_after - l1m)
             w = alpha * t_before
             if bf16_ops:
@@ -760,7 +729,6 @@ def composite_bwd(skeys, perm, starts, ends, feat_r, img, stop, grad,
                                    stop, grad, rank_bits, width, height,
                                    bf16_ops=bf16_ops)
     _cuda_only("composite_bwd", feat_r)
-    _no_bf16_fwd("composite_bwd")
     tiles_x, tiles_y, nv = _compositor_shapes(
         "composite_bwd", skeys, starts, ends, feat_r, width, height)
     e = skeys.shape[0]

@@ -45,8 +45,14 @@ dict, in one of two kinds:
   names one: gloo reduces host tensors, so a collective on CUDA tensors
   is staged through the host explicitly (`Ranks.staged`). Under NCCL rank
   r's device is cuda:<r>; NCCL needs a card per rank on a host, and
-  `init_ranks` refuses more ranks than cards. These steps run
-  eagerly (no CUDA graph: staged collectives read the host).
+  `init_ranks` refuses more ranks than cards.
+  Both trainers return a `training.MultiPlotStep` carrying their reduce.
+  Over NCCL its step, collectives included, is replayed from a CUDA graph
+  (`Ranks.captured`; every group's communicator is set up when the mesh
+  is made, before any capture). A staged step reads the host, so over
+  gloo the steps run eagerly. The host-side collectives of the densify
+  (`densify_gauss`) and of apps/train_multi's schedule stay outside the
+  step.
 """
 
 from __future__ import annotations
@@ -64,8 +70,8 @@ from ..config import OptimizationParams
 from ..models import gaussians as G
 from ..ops.projection import Splats2D, project_gaussians
 from ..render.pipeline import RasterConfig, rasterize_config
-from ..training import (PLOT_METRICS, grads_of, multi_plot_step,
-                        render_views, train_step_views)
+from ..training import (grads_of, multi_plot_step, render_views,
+                        train_step_views)
 
 BACKENDS = ("gloo", "nccl")
 
@@ -84,6 +90,14 @@ class Ranks:
         """Collectives on this rank's tensors go through host copies (gloo
         with CUDA tensors)."""
         return self.backend == "gloo" and self.device.type == "cuda"
+
+    @property
+    def captured(self) -> bool:
+        """A training step over these ranks is replayed from a CUDA graph:
+        under NCCL (collectives on device tensors, which a graph can
+        capture). Under gloo the step runs eagerly: staged collectives
+        read the host, and a CPU rank has no graph."""
+        return self.backend == "nccl"
 
 
 def init_ranks(backend: str, init_method: str, world_size: int, rank: int,
@@ -154,6 +168,13 @@ class Mesh:
                     g = dist.new_group([int(r) for r in line])
                     if ranks.rank in line:
                         self._groups[name] = g
+            if ranks.backend == "nccl":
+                # NCCL sets a group's communicator up at its first
+                # collective, which a capture must not record.
+                for g in self._groups.values():
+                    dist.all_reduce(torch.zeros(1, device=ranks.device),
+                                    group=g)
+                torch.cuda.synchronize(ranks.device)
 
     @property
     def shape(self) -> dict:
@@ -236,9 +257,14 @@ class ViewReduce:
 
     def __init__(self, coll: AxisCollectives):
         self.coll = coll
+        self.groups = (coll.group,)
 
     def total(self, b: int) -> int:
         return b * self.coll.size
+
+    def alive_(self, n: torch.Tensor) -> torch.Tensor:
+        """The state is replicated over the view group: its own count."""
+        return n
 
     def sum_(self, grads, scalars):
         flat = torch.cat([g.reshape(-1) for g in grads]
@@ -359,24 +385,13 @@ def build_multi_plot_trainer(mesh: Mesh, sh_degree: int, width: int,
     step for P plots x B views (training.multi_plot_step). Over ranks it
     takes this rank's shard_states / shard_views / shard_plot parts and
     returns its plots' (P / n_plots,) metrics, each the whole view
-    group's."""
+    group's; the step is replayed from a CUDA graph where the ranks allow
+    it (`Ranks.captured`)."""
     if mesh.ranks is None:
         return multi_plot_step(sh_degree, width, height, opt, config)
-    reduce = ViewReduce(mesh.collectives("view"))
-
-    def step(states, cams, gt_images, bg, scalars):
-        ms = []
-        for p in range(gt_images.shape[0]):
-            _, m = train_step_views(
-                G.map_tensors(lambda x: x[p], states),
-                tuple(a[p] for a in cams), gt_images[p], bg, scalars[p],
-                sh_degree=sh_degree, width=width, height=height, opt=opt,
-                config=config, reduce=reduce)
-            ms.append(m)
-        return states, {k: torch.stack([m[k] for m in ms]).to(dt)
-                        for k, dt in PLOT_METRICS.items()}
-
-    return step
+    return multi_plot_step(sh_degree, width, height, opt, config,
+                           reduce=ViewReduce(mesh.collectives("view")),
+                           capture=mesh.ranks.captured)
 
 
 # ---------------------------------------------------------------------------
@@ -439,6 +454,7 @@ class GaussRows:
     def __init__(self, mesh: Mesh):
         self.gauss = mesh.collectives("gauss")
         self.views = mesh.collectives("view")
+        self.groups = (self.gauss.group, self.views.group)
         self._rows = self._full = None
 
     def total(self, b: int) -> int:
@@ -446,11 +462,14 @@ class GaussRows:
 
     def render_views(self, view, cams, b, *, width, height, sh_degree, bg,
                      ndc_offset, config):
-        opacity, scales, sh = view.opacity(), view.scales(), view.sh()
+        # Activated per view, as render() does, so that the gradients of
+        # the log-scales and opacity logits are summed over the views in
+        # one process's order.
         projected = [project_gaussians(
-            view.params.means, scales, view.params.quats, opacity,
-            *(a[j] for a in cams), width, height, sh=sh,
-            sh_degree=sh_degree, ndc_offset=ndc_offset) for j in range(b)]
+            view.params.means, view.scales(), view.params.quats,
+            view.opacity(), *(a[j] for a in cams), width, height,
+            sh=view.sh(), sh_degree=sh_degree, ndc_offset=ndc_offset)
+            for j in range(b)]
         rows = torch.stack([_pack_rows(s) for s in projected])
         radius = torch.stack([s.radius for s in projected])
         g, f = self.gauss.size, rows.shape[-1]
@@ -493,6 +512,29 @@ class GaussRows:
         self.gauss.all_reduce_(flat, dist.ReduceOp.MAX)
         return radii, flat[0].to(entries.dtype)
 
+    def alive_(self, n: torch.Tensor) -> torch.Tensor:
+        """This rank's alive rows summed over the gauss group."""
+        flat = n.reshape(1).clone()
+        self.gauss.all_reduce_(flat)
+        return flat[0]
+
+
+class OneStateStep:
+    """A multi-plot step over one state with no plot axis: (state, cams,
+    gt_images, bg, scalars) -> (state, metrics) as train_step_views takes
+    and returns them, through a training.MultiPlotStep (`.step`, its
+    `.graph`) on views of a one-plot stack."""
+
+    def __init__(self, step):
+        self.step = step
+        self.graph = step.graph
+
+    def __call__(self, state, cams, gt_images, bg, scalars):
+        _, m = self.step(G.map_tensors(lambda x: x[None], state),
+                         tuple(a[None] for a in cams), gt_images[None], bg,
+                         scalars[None])
+        return state, {k: v[0] for k, v in m.items()}
+
 
 def build_gauss_sharded_trainer(mesh: Mesh, sh_degree: int, width: int,
                                 height: int, opt: OptimizationParams,
@@ -501,21 +543,16 @@ def build_gauss_sharded_trainer(mesh: Mesh, sh_degree: int, width: int,
     ('view', 'gauss') mesh: train_step_views, over one device on the whole
     state, over ranks on this rank's shard_state_gauss rows and its view
     row's shard_view_batch views (GaussRows), with the metrics of the
-    whole step."""
-    kw = dict(sh_degree=sh_degree, width=width, height=height, opt=opt,
-              config=config)
+    whole step (n_alive summed over the gauss group inside the step): a
+    OneStateStep, replayed from a CUDA graph where the ranks allow it
+    (`Ranks.captured`)."""
     if mesh.ranks is None:
-        return functools.partial(train_step_views, **kw)
-    rows = GaussRows(mesh)
-
-    def step(state, cams, gt_images, bg, scalars):
-        state, m = train_step_views(state, cams, gt_images, bg, scalars,
-                                    reduce=rows, **kw)
-        alive = m["n_alive"].reshape(1).clone()
-        rows.gauss.all_reduce_(alive)
-        return state, {**m, "n_alive": alive[0]}
-
-    return step
+        return functools.partial(train_step_views, sh_degree=sh_degree,
+                                 width=width, height=height, opt=opt,
+                                 config=config)
+    return OneStateStep(multi_plot_step(
+        sh_degree, width, height, opt, config, reduce=GaussRows(mesh),
+        capture=mesh.ranks.captured))
 
 
 def densify_gauss(mesh: Mesh, state: G.GaussianState, **kw):

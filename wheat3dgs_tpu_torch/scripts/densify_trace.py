@@ -3,7 +3,7 @@ all-plain, and their comparison.
 
     python wheat3dgs_tpu_torch/scripts/densify_trace.py run [--plain]
         [--eager] [--xla TILE] [--tpu_knn] [--bf16_grads]
-        [--bf16_replay] [--bf16_fwd] --
+        [--bf16_replay] --
         <apps.train_vanilla arguments>
     python wheat3dgs_tpu_torch/scripts/densify_trace.py compare
         NAME=MODEL/metrics.jsonl ...
@@ -29,12 +29,9 @@ rounds every entry's gradient row to bfloat16 before the per-splat
 segment sum (`cuda_raster.segsum`), as JAX's backward at commit 54bd0ea
 did (it sorted them packed as bfloat16 pairs). `--bf16_replay` takes the
 backward replay's three products from bfloat16 operands with float32
-sums, as JAX's `_bwd_kernel` does on a TPU. `--bf16_fwd` gives the
-plain training compositor and replay a TPU's default-precision rounding
-of the transmittance prefix and the image sums (JAX's round-3 forward);
-it has no kernel, so it needs `--plain` (and `--eager` on the card). The
-patches are tpu_numerics.py's, entered after `--plain`'s and before the
-CLI builds its Trainer.
+sums, as JAX's `_bwd_kernel` does on a TPU. The patches are
+tpu_numerics.py's, entered after `--plain`'s and before the CLI builds
+its Trainer.
 `compare` prints the runs' records side by side, one row per densify
 iteration, with the last run's n_alive relative to the first's.
 """
@@ -51,8 +48,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", ".."))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from tpu_numerics import (bf16_fwd, bf16_grads, bf16_replay,  # noqa: E402
-                          tpu_knn)
+from tpu_numerics import bf16_grads, bf16_replay, tpu_knn  # noqa: E402
 
 FIELDS = ("n_clone", "n_split", "n_pruned_opacity", "n_pruned", "n_alive",
           "entry_budget", "entries_total", "overflow_events")
@@ -156,12 +152,9 @@ def run(argv) -> dict:
     parser.add_argument("--tpu_knn", action="store_true")
     parser.add_argument("--bf16_grads", action="store_true")
     parser.add_argument("--bf16_replay", action="store_true")
-    parser.add_argument("--bf16_fwd", action="store_true")
     args, rest = parser.parse_known_args(argv)
     if rest and rest[0] == "--":
         rest = rest[1:]
-    if args.bf16_fwd and not args.plain:
-        parser.error("--bf16_fwd has no kernel: it needs --plain")
     with contextlib.ExitStack() as stack:
         if args.plain:
             stack.enter_context(cuda_raster.plain_kernels())
@@ -180,15 +173,13 @@ def run(argv) -> dict:
             stack.enter_context(bf16_grads())
         if args.bf16_replay:
             stack.enter_context(bf16_replay())
-        if args.bf16_fwd:
-            stack.enter_context(bf16_fwd())
         trainer, scene = train_vanilla.main(rest + ["--quiet"])
     path = os.path.join(scene.model_path, "metrics.jsonl")
     recs = densify_records(path)
     print(f"densify records of {path} (plain={args.plain}, "
           f"eager={args.eager}, xla={args.xla}, tpu_knn={args.tpu_knn}, "
-          f"bf16_grads={args.bf16_grads}, bf16_replay={args.bf16_replay},"
-          f" bf16_fwd={args.bf16_fwd}):")
+          f"bf16_grads={args.bf16_grads}, bf16_replay={args.bf16_replay})"
+          ":")
     fields = FIELDS + (XLA_FIELDS if args.xla else ())
     print("iter " + " ".join(fields))
     for it, r in sorted(recs.items()):

@@ -28,15 +28,6 @@ app arguments and the patches entered, each restored when it returns.
   it. A CUDA graph (training_graph.StepGraph) captured before it is
   entered replays the float32 replay it captured, so enter it before any
   Trainer is built; the runner does.
-- `bf16_fwd()`: sets `cuda_raster.BF16_FWD`, which only the plain
-  training compositor and replay read: the rounding of a one-pass
-  bfloat16 matmul at a TPU's default precision, the log-transmittance
-  prefix adding bfloat16-rounded log1p(-alpha) in both and the image
-  sums taking bfloat16-rounded weights and value rows (JAX's round-3
-  `_fwd_kernel`, commit 54bd0ea, pallas_raster.py:673-689). It has no
-  kernel, and the kernels refuse to run while it is set: densify_trace.py
-  runs it with `--plain` (on the card also `--eager`, as the plain
-  versions read the host).
 - `train_seed(n)`: the Trainer's split-noise generator is seeded with n
   (its default is 0, as JAX's training seeds 0); runs that differ only in
   it give a spread of the port's own, otherwise deterministic, runs.
@@ -88,15 +79,6 @@ def bf16_replay():
 
     return mock.patch.object(cuda_raster, "composite_bwd", functools.partial(
         cuda_raster.composite_bwd, bf16_ops=True))
-
-
-def bf16_fwd():
-    """The plain training compositor and replay round their transmittance
-    prefix and image sums as a TPU's default-precision matmul while this
-    is entered (cuda_raster.BF16_FWD; the kernels refuse to run)."""
-    from wheat3dgs_tpu_torch.ops import cuda_raster
-
-    return mock.patch.object(cuda_raster, "BF16_FWD", True)
 
 
 def train_seed(n: int):

@@ -19,7 +19,8 @@ train_vanilla_3dgs.py:55-121):
   B views each on states stacked on a leading P axis (the scale-out the
   reference leaves to one SLURM job per plot). The plots run one after
   another on the card, each on views into the stack; on a CUDA device the
-  whole step is replayed from a CUDA graph.
+  whole step is replayed from a CUDA graph, over NCCL ranks too
+  (parallel/mesh.py's trainers pass their `reduce`).
 - `Trainer`: camera-independent schedule — SH warm-up, random background
   from a torch.Generator, the occupancy ladder of JAX's
   `_refresh_occupancy` (the entry budget on "pallas"; on "xla"
@@ -166,7 +167,7 @@ def train_step_views(state: G.GaussianState, cams, gt_images: torch.Tensor,
     reduce.grads takes the gradients of its share of the mean loss;
     reduce.sum_ sums them and the loss, L1 and MSE sums over the ranks;
     reduce.max_ takes the maxima of radii and entries_total; all before
-    Adam."""
+    Adam; reduce.alive_ counts the alive splats of every rank's rows."""
     b = gt_images.shape[0]
     n = b if reduce is None else reduce.total(b)
     params = state.params.as_dict()
@@ -218,7 +219,8 @@ def train_step_views(state: G.GaussianState, cams, gt_images: torch.Tensor,
     with torch.no_grad():
         metrics = {"loss": loss, "l1": ll1,
                    "psnr": 20.0 * -torch.log10(torch.sqrt(mse)),
-                   "n_alive": state.num_alive,
+                   "n_alive": (state.num_alive if reduce is None
+                               else reduce.alive_(state.num_alive)),
                    "entries_total": entries}
     return state, metrics
 
@@ -289,13 +291,24 @@ class MultiPlotStep:
     through one `StepGraph` (`graph`): replayed from a CUDA graph on a CUDA
     device, recaptured when a state tensor (densify, capacity growth,
     opacity reset), the shapes or the entry budget change; run eagerly on
-    the CPU."""
+    the CPU.
+
+    `reduce` (parallel.mesh's ViewReduce or GaussRows) is each plot's
+    train_step_views `reduce`: the step is this rank's share of a step
+    over ranks, and the reduce's process groups join the graph's key. Its
+    collectives are captured with the rest of the step (NCCL's take device
+    tensors and can be); with `capture` False the step runs eagerly on
+    every device, as a staged collective (gloo on CUDA tensors) reads the
+    host. parallel.mesh decides `capture` from the ranks
+    (`Ranks.captured`)."""
 
     def __init__(self, sh_degree: int, width: int, height: int,
                  opt: OptimizationParams,
-                 config: RasterConfig = RasterConfig()):
+                 config: RasterConfig = RasterConfig(), reduce=None,
+                 capture: bool = True):
         self.sh_degree, self.width, self.height = sh_degree, width, height
         self.opt, self.config = opt, config
+        self.reduce, self.capture = reduce, capture
         self.graph = StepGraph()
         self._inputs = []
         self._out = {}
@@ -313,7 +326,11 @@ class MultiPlotStep:
                          for k, dt in PLOT_METRICS.items()}
         for buf, a in zip(self._inputs, args):
             buf.copy_(a)
-        self.graph.run(lambda: self._step(states), 1, self._key(states), dev)
+        if self.capture:
+            self.graph.run(lambda: self._step(states), 1, self._key(states),
+                           dev)
+        else:
+            self._step(states)
         return states, {k: v.clone() for k, v in self._out.items()}
 
     def _step(self, states: G.GaussianState) -> None:
@@ -324,7 +341,8 @@ class MultiPlotStep:
                 G.map_tensors(lambda x: x[p], states),
                 tuple(a[p] for a in cams), gts[p], bg, scalars[p],
                 sh_degree=self.sh_degree, width=self.width,
-                height=self.height, opt=self.opt, config=self.config)
+                height=self.height, opt=self.opt, config=self.config,
+                reduce=self.reduce)
             ms.append(m)
         for k, buf in self._out.items():
             buf.copy_(torch.stack([m[k] for m in ms]))
@@ -333,12 +351,14 @@ class MultiPlotStep:
         """What the captured step bakes in: the address and shape of every
         state tensor and static input and output (the capacity among the
         shapes), the SH degree, the image size, the raster config (the
-        entry budget) and the optimiser's constants."""
+        entry budget), the optimiser's constants and the reduce's process
+        groups. (The collectives' own buffers are allocated inside the
+        step, so a replay finds them where the capture put them.)"""
         tensors = (state_tensors(states) + self._inputs
                    + list(self._out.values()))
         return (tuple((t.data_ptr(), tuple(t.shape)) for t in tensors),
                 self.sh_degree, self.width, self.height, self.config,
-                self.opt)
+                self.opt, () if self.reduce is None else self.reduce.groups)
 
 
 def state_tensors(s: G.GaussianState) -> list:
