@@ -405,6 +405,7 @@ def test_cli_profile_trace_and_tensorboard(small_scene, tmp_path):
                                         "trace.json")))
     names = {e.get("name") for e in trace["traceEvents"]}
     assert any("autograd" in str(n) or "aten::" in str(n) for n in names)
+    assert "w3dgs/train.eager_step" in names      # the program's spans
     assert trainer.state.adam.step == 221
     try:
         from tensorboard.backend.event_processing.event_accumulator import \

@@ -19,10 +19,12 @@ cannot run inside a captured step, so `--detect_anomaly` runs every step
 alone, and `--debug_from D` every step from D + 1 on (JAX's
 `jax_debug_nans` runs inside its scan); `--profile` writes a
 `torch.profiler` Chrome trace of the 20 steps from the first iteration +
-200 to `<model>/profile/` (JAX: a jax.profiler trace). TensorBoard scalars
-are written when `torch.utils.tensorboard` imports; the JSONL log holds
-the same numbers. `--max_per_tile` and `--max_tiles_per_gauss` are the JAX
-XLA backend's knobs, accepted and unused.
+200 to `<model>/profile/` (JAX: a jax.profiler trace), with the program's
+spans (`utils/trace.py`: "w3dgs/train.*", "w3dgs/graph.*") on.
+TensorBoard scalars are written when `torch.utils.tensorboard` imports;
+the JSONL log holds the same numbers. `--max_per_tile` and
+`--max_tiles_per_gauss` are the JAX XLA backend's knobs, accepted and
+unused.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from ..ops.losses import psnr
 from ..render.pipeline import adapt_config, render_fwd
 from ..scene import Scene
 from ..training import Trainer
+from ..utils import trace
 from ..utils.general import seed_everything
 
 
@@ -156,6 +159,7 @@ def _start_profile(dev: torch.device):
         acts.append(ProfilerActivity.CUDA)
     prof = profile(activities=acts)
     prof.start()
+    trace.on()          # the program's spans, inside the profiler's range
     return prof
 
 
@@ -164,6 +168,7 @@ def _stop_profile(prof, dev: torch.device, model_path: str) -> None:
     <model>/profile/trace.json (Chrome trace format)."""
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+    trace.off()
     prof.stop()
     out = os.path.join(model_path, "profile")
     os.makedirs(out, exist_ok=True)

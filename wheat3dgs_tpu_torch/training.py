@@ -34,6 +34,11 @@ train_vanilla_3dgs.py:55-121):
   (`training_graph.StepGraph`), on the CPU as K eager steps of the same
   code.
 
+  With the program's spans on (`utils/trace.py`) the schedule records
+  "train.eager_step" (`Trainer.step`'s step), "train.occupancy",
+  "train.watchdog" and "train.densify" (with "train.grow_capacity" inside
+  it), and every blocking device-to-host read of the schedule counts in
+  the `host_reads` counter.
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ from .ops.projection import project_gaussians
 from .render.pipeline import (RasterConfig, entry_demand_probe, render,
                               zero_colors)
 from .training_graph import StepGraph
+from .utils import trace
 from .utils.general import expon_lr
 
 # The step's scalar row: each leaf's learning rate, then Adam's bias
@@ -88,6 +94,13 @@ def occupancy_probe(state: G.GaussianState, w2c, full_proj, cam_center,
                      max=n - 1)
     p99 = torch.sort(areas).values[at]
     return counts.max(), torch.clamp(p99, min=1), counts.sum()
+
+
+def host_int(x: torch.Tensor) -> int:
+    """int(x) of a device tensor: a blocking read, counted in
+    `host_reads`."""
+    trace.count("host_reads")
+    return int(x)
 
 
 def lr_tree(it: int, opt: OptimizationParams,
@@ -426,24 +439,27 @@ class Trainer:
         demand, never lowered. "xla": the max_tiles_per_gauss rung over
         the 99th-percentile footprint and the max_per_tile rung over 1.5x
         the max tile count, both free to move either way (JAX's rule)."""
-        if self.config.backend == "pallas":
-            demand = int(entry_demand_probe(self.state, *cam, width=width,
-                                            height=height))
-            budget = max(self.config.entry_budget,
-                         pick_entry_budget(demand))
-            if budget != self.config.entry_budget:
-                self.config = dataclasses.replace(self.config,
-                                                  entry_budget=budget)
-        else:
-            max_count, p99_area, _ = occupancy_probe(
-                self.state, *cam, width=width, height=height,
-                tile=self.config.tile, mtpg=self.config.max_tiles_per_gauss)
-            mtpg = pick_mtpg(int(p99_area))
-            mpt = pick_max_per_tile(int(max_count), headroom=1.5)
-            if (mpt != self.config.max_per_tile
-                    or mtpg != self.config.max_tiles_per_gauss):
-                self.config = dataclasses.replace(
-                    self.config, max_per_tile=mpt, max_tiles_per_gauss=mtpg)
+        with trace.span("train.occupancy"):
+            if self.config.backend == "pallas":
+                demand = host_int(entry_demand_probe(
+                    self.state, *cam, width=width, height=height))
+                budget = max(self.config.entry_budget,
+                             pick_entry_budget(demand))
+                if budget != self.config.entry_budget:
+                    self.config = dataclasses.replace(self.config,
+                                                      entry_budget=budget)
+            else:
+                max_count, p99_area, _ = occupancy_probe(
+                    self.state, *cam, width=width, height=height,
+                    tile=self.config.tile,
+                    mtpg=self.config.max_tiles_per_gauss)
+                mtpg = pick_mtpg(host_int(p99_area))
+                mpt = pick_max_per_tile(host_int(max_count), headroom=1.5)
+                if (mpt != self.config.max_per_tile
+                        or mtpg != self.config.max_tiles_per_gauss):
+                    self.config = dataclasses.replace(
+                        self.config, max_per_tile=mpt,
+                        max_tiles_per_gauss=mtpg)
         self._occupancy_due = False
 
     def _background(self) -> torch.Tensor:
@@ -463,10 +479,11 @@ class Trainer:
         row = to_device(step_scalars(it, self.state.adam.step + 1, 1,
                                      self.opt, self.extent),
                         self.state.device)[0]
-        self.state, metrics = train_step(
-            self.state, cam, gt_image, bg, row,
-            sh_degree=self.active_sh_degree, width=width, height=height,
-            opt=self.opt, config=self.config)
+        with trace.span("train.eager_step"):
+            self.state, metrics = train_step(
+                self.state, cam, gt_image, bg, row,
+                sh_degree=self.active_sh_degree, width=width, height=height,
+                opt=self.opt, config=self.config)
         self.state.adam.step += 1
         if (self.adaptive_occupancy and self.config.backend == "pallas"
                 and it % self.overflow_check_every == 0):
@@ -575,7 +592,9 @@ class Trainer:
         demand is compared with the CURRENT budget, so telemetry from before
         a re-probe that already raised the rung does not trigger again."""
         if self._pending_overflow is not None:
-            if int(self._pending_overflow) > self.config.entry_budget:
+            with trace.span("train.watchdog"):
+                demand = host_int(self._pending_overflow)
+            if demand > self.config.entry_budget:
                 self.overflow_events += 1
                 self._occupancy_due = True   # raise the rung next step
         self._pending_overflow = entries_total
@@ -587,26 +606,34 @@ class Trainer:
         # densification still moves and inflates splats.
         if it % opt.densification_interval == 0:
             self._occupancy_due = True
-        if it < opt.densify_until_iter:
-            if (it > opt.densify_from_iter
-                    and it % opt.densification_interval == 0):
+        if it >= opt.densify_until_iter:
+            return info
+        densify = (it > opt.densify_from_iter
+                   and it % opt.densification_interval == 0)
+        # Reset schedule incl. the white-background early reset
+        # (reference train_vanilla_3dgs.py:109-110).
+        reset = (it % opt.opacity_reset_interval == 0 and it > 0) or (
+            self.white_background and it == opt.densify_from_iter)
+        if not (densify or reset):
+            return info
+        with trace.span("train.densify"):
+            if densify:
                 max_screen = 20.0 if it > opt.opacity_reset_interval else 0.0
                 self.state, info = G.densify_and_prune(
                     self.state, opt.densify_grad_threshold, 0.005,
                     self.extent, max_screen, opt.percent_dense,
                     generator=self.generator)
                 self.last_densify = (it, info)
-                if int(info["n_dropped"]) > 0 or (
-                        int(info["n_alive"]) > 0.9 * self.state.capacity):
-                    self.state = G.grow_capacity(
-                        self.state,
-                        max(G._round_capacity(
-                                int(1.3 * int(info["n_alive"]))),
-                            self.state.capacity + 32768))
+                if host_int(info["n_dropped"]) > 0 or (
+                        host_int(info["n_alive"])
+                        > 0.9 * self.state.capacity):
+                    with trace.span("train.grow_capacity"):
+                        self.state = G.grow_capacity(
+                            self.state,
+                            max(G._round_capacity(
+                                    int(1.3 * host_int(info["n_alive"]))),
+                                self.state.capacity + 32768))
                 self._occupancy_due = True
-            # Reset schedule incl. the white-background early reset
-            # (reference train_vanilla_3dgs.py:109-110).
-            if (it % opt.opacity_reset_interval == 0 and it > 0) or (
-                    self.white_background and it == opt.densify_from_iter):
+            if reset:
                 self.state = G.reset_opacity(self.state)
         return info

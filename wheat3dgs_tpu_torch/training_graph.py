@@ -25,6 +25,11 @@ The kernels' launch counters (`ops/cuda_build.launches`) count a launch
 when Python calls its wrapper, i.e. once at capture. The capture's counts
 are taken back (the capture ran nothing) and added again on every replay,
 so the counters stay true per executed step.
+
+With the program's spans on (`utils/trace.py`) a run records
+"graph.release" where a graph is dropped, "graph.warmup" around the eager
+warm-up step, "graph.capture" around what `capture_seconds` times and
+"graph.replay" around the replays.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from typing import Callable, Hashable, List
 import torch
 
 from .ops import cuda_build
+from .utils import trace
 
 
 class StepGraph:
@@ -53,7 +59,9 @@ class StepGraph:
 
     def release(self) -> None:
         """Drop the graph (and with it its private memory pool)."""
-        self.graph = None
+        if self.graph is not None:
+            with trace.span("graph.release"):
+                self.graph = None
         self.key = None
         self.per_replay = {}
 
@@ -71,8 +79,9 @@ class StepGraph:
             self._capture(step, device)
             self.key = key
             done = 1
-        for _ in range(n - done):
-            self.graph.replay()
+        with trace.span("graph.replay"):
+            for _ in range(n - done):
+                self.graph.replay()
         replays = n - done
         self.replays += replays
         for k, c in self.per_replay.items():
@@ -81,23 +90,24 @@ class StepGraph:
     def _capture(self, step: Callable[[], None], device) -> None:
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
+        with trace.span("graph.warmup"), torch.cuda.stream(side):
             step()                      # the warm-up: a real step
-        t0 = time.perf_counter()
-        before = dict(cuda_build.launches)
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(graph, stream=side):
-                step()
-        finally:
-            counted = dict(cuda_build.launches)
-            cuda_build.launches.update(before)   # the capture ran nothing
-        torch.cuda.current_stream(device).wait_stream(side)
-        self.per_replay = {k: counted[k] - before[k] for k in before
-                           if counted[k] != before[k]}
-        self.graph = graph
-        self.captures += 1
-        self.capture_seconds.append(time.perf_counter() - t0)
+        with trace.span("graph.capture"):
+            t0 = time.perf_counter()
+            before = dict(cuda_build.launches)
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.graph(graph, stream=side):
+                    step()
+            finally:
+                counted = dict(cuda_build.launches)
+                cuda_build.launches.update(before)  # the capture ran nothing
+            torch.cuda.current_stream(device).wait_stream(side)
+            self.per_replay = {k: counted[k] - before[k] for k in before
+                               if counted[k] != before[k]}
+            self.graph = graph
+            self.captures += 1
+            self.capture_seconds.append(time.perf_counter() - t0)
 
 
 @contextlib.contextmanager
