@@ -31,6 +31,12 @@ JAX package, on the CPU, where step_block runs its step K times eagerly.
 - The key of step_block's CUDA graph changes with every event that makes
   a captured step stale: densify/prune, capacity growth, opacity reset,
   a checkpoint load, a budget raise and an SH step; not with a block.
+- Trainer.maybe_densify at an unchanged capacity writes densify_and_prune's
+  result (bit-equal to the function run on a copy with the same generator
+  state) into the state's own tensors: the graph's key holds and
+  `densify_in_place` counts it; with growth the key changes and the
+  counter stands. The state handed to densify_and_prune is never written
+  afterwards (the benchmark's densify check reads it after the run).
 """
 
 import dataclasses
@@ -56,6 +62,7 @@ from wheat3dgs_tpu_torch.apps import train_vanilla as TV
 from wheat3dgs_tpu_torch.config import OptimizationParams as TOpt
 from wheat3dgs_tpu_torch.models import gaussians as TG
 from wheat3dgs_tpu_torch.models import serialization as TS
+from wheat3dgs_tpu_torch.utils import trace
 
 EYES = [(0.0, 0.0, -4.0), (1.0, 0.0, -3.8), (-1.0, 0.5, -3.8),
         (0.0, -1.0, -3.8)]
@@ -459,3 +466,83 @@ def test_graph_key_changes_with_every_stale_event(tmp_path):
         before = key()
         event()
         assert key() != before, name
+
+
+# --- a densify in place ----------------------------------------------------
+
+
+def _densify_trainer(threshold: float):
+    """A Trainer on 40 splats in 64 slots after a block of steps (96-99),
+    densifying at every 100th iteration from 50 on."""
+    _, jst, _ = _scene()
+    stacks, gts = _torch_stacks(*_stacks())
+    opt = dataclasses.replace(TOpt(), densify_from_iter=50,
+                              densification_interval=100,
+                              densify_grad_threshold=threshold)
+    tr = TT.Trainer(_port_state(jst), opt, 2.0, sh_degree=1, seed=4)
+    tr.step_block(96, [0, 2, 1, 3], stacks, gts, W, H, n_steps=4)
+    return tr, stacks, gts
+
+
+@pytest.mark.parametrize("grow", [False, True])
+def test_densify_in_place_keeps_the_graph_key(grow):
+    """Four splats with a statistic of 1 (threshold 0.5: they clone or
+    split into free slots, capacity unchanged), or every splat (threshold
+    0: the requests outrun the 24 free slots and the capacity grows)."""
+    tr, stacks, gts = _densify_trainer(0.0 if grow else 0.5)
+    st = tr.state
+    st.denom.fill_(1.0)
+    st.grad_accum.zero_()
+    st.grad_accum[:4] = 1.0
+    gen = torch.Generator()
+    gen.set_state(tr.generator.get_state())
+    want, info = TG.densify_and_prune(
+        TG.map_tensors(torch.clone, st), tr.opt.densify_grad_threshold,
+        0.005, 2.0, 0.0, tr.opt.percent_dense, generator=gen)
+    key = tr._graph_key(stacks, gts, W, H)
+    count = trace.counters().get("densify_in_place", 0)
+
+    tr.maybe_densify(100)
+
+    in_place = trace.counters().get("densify_in_place", 0) - count
+    assert int(info["n_clone"]) + int(info["n_split"]) > 0
+    if grow:
+        assert tr.state.capacity > 64
+        assert tr._graph_key(stacks, gts, W, H) != key
+        assert in_place == 0
+        return
+    assert int(info["n_dropped"]) == 0 and tr.state.capacity == 64
+    assert tr.state is st
+    assert tr._graph_key(stacks, gts, W, H) == key
+    assert in_place == 1
+    for a, b in zip(TT.state_tensors(tr.state), TT.state_tensors(want)):
+        assert torch.equal(a, b)
+    assert tr.state.adam.step == want.adam.step
+    assert int(tr.state.num_alive) == int(info["n_alive"]) != 40
+
+
+def test_densify_input_is_never_written(monkeypatch):
+    """densify_and_prune wrapped as the benchmark's DensifyRecorder wraps
+    it: the state of its first call and a copy of its rows, taken then,
+    are still equal after another block and another densify, both in
+    place, while the working set has moved on."""
+    kept = []
+    densify = TG.densify_and_prune
+
+    def recorded(state, *a, **kw):
+        kept.append((state, [t.clone() for t in TT.state_tensors(state)]))
+        return densify(state, *a, **kw)
+
+    monkeypatch.setattr(TG, "densify_and_prune", recorded)
+    tr, stacks, gts = _densify_trainer(1e9)
+    count = trace.counters().get("densify_in_place", 0)
+    tr.step_block(100, [1], stacks, gts, W, H, n_steps=1)
+    tr.step_block(101, list(range(4)) * 25, stacks, gts, W, H,
+                  n_steps=100)
+    assert trace.counters().get("densify_in_place", 0) - count == 2
+    assert len(kept) == 2 and tr.state.capacity == 64
+    state, rows = kept[0]
+    assert state is not tr.state
+    for a, b in zip(TT.state_tensors(state), rows):
+        assert torch.equal(a, b)
+    assert not torch.equal(state.params.means, tr.state.params.means)

@@ -16,7 +16,10 @@ splats), from the same state and views:
   training kernel per block, and the graph's captures and replays add up;
 - a densify/prune, an opacity reset and a budget raise between two blocks
   each cause a recapture, and the block after each still equals its eager
-  steps (a replay of the stale graph would train the old tensors).
+  steps (a replay of the stale graph would train the old tensors);
+- the Trainer's own densify at an unchanged capacity (written back into
+  the state's tensors) causes none: three blocks across two densifies
+  capture once and equal their eager steps after every block.
 """
 
 import dataclasses
@@ -28,6 +31,7 @@ from wheat3dgs_tpu_torch import config as cfg
 from wheat3dgs_tpu_torch.models import gaussians as G
 from wheat3dgs_tpu_torch.ops import cuda_build
 from wheat3dgs_tpu_torch.training import LAST_METRICS, Trainer
+from wheat3dgs_tpu_torch.utils import trace
 
 K = 8
 TRAIN_KERNELS = ("decode_cull", "composite_train_fwd", "composite_bwd",
@@ -58,16 +62,20 @@ def _clone(state):
                               device=state.device)
 
 
-def _pair(scene):
-    """Two trainers on copies of the scene's state at SH degree 3, with the
-    entry budget probed once on view 0 and then fixed (the watchdog reads
-    a block's telemetry at other steps than single steps do)."""
-    opt = dataclasses.replace(cfg.OptimizationParams(),
-                              densify_from_iter=10 ** 6)
+def _pair(scene, opt=None, room=0):
+    """Two trainers on copies of the scene's state at SH degree 3 (with
+    `room` more free slots), with the entry budget probed once on view 0
+    and then fixed (the watchdog reads a block's telemetry at other steps
+    than single steps do). `opt` defaults to one that never densifies."""
+    opt = opt or dataclasses.replace(cfg.OptimizationParams(),
+                                     densify_from_iter=10 ** 6)
     w, h = scene.image_size
     pair = []
     for _ in range(2):
-        tr = Trainer(_clone(scene.gaussians), opt, scene.cameras_extent,
+        st = _clone(scene.gaussians)
+        if room:
+            st = G.grow_capacity(st, st.capacity + room)
+        tr = Trainer(st, opt, scene.cameras_extent,
                      sh_degree=3, seed=1, adaptive_occupancy=False)
         tr._refresh_occupancy(scene.cam_arrays("train", 0), w, h)
         tr.active_sh_degree = 3
@@ -159,6 +167,41 @@ def test_stale_graph_is_recaptured(scene):
         torch.cuda.synchronize()
         assert graphed.graph.captures == captures + 1, name
         _assert_equal(graphed, eager, mg, me, name)
+
+
+@pytest.mark.gpu
+def test_densify_in_place_keeps_the_graph(scene):
+    """Blocks 1-8, 9-16 and 17-24 with the Trainer's densify after the
+    first two (iterations 8 and 16; 32,768 spare slots keep the capacity),
+    graphed and eager: one capture in all, both densifies written back in
+    place, and the graphed state and metrics equal the eager ones after
+    every block."""
+    opt = dataclasses.replace(cfg.OptimizationParams(), densify_from_iter=1,
+                              densification_interval=K, densify_until_iter=17,
+                              densify_grad_threshold=2e-5)
+    graphed, eager = _pair(scene, opt, room=32768)
+    cap = graphed.state.capacity
+    stacks = scene.cam_stack("train")
+    gts = torch.as_tensor(scene.data.train.images, device=stacks[0].device)
+    w, h = scene.image_size
+    grown = 0
+    for block in range(3):
+        it = 1 + block * K
+        vis = _views(block, gts.shape[0])
+        count = trace.counters().get("densify_in_place", 0)
+        mg = graphed.step_block(it, vis, stacks, gts, w, h, n_steps=K)
+        in_place = trace.counters().get("densify_in_place", 0) - count
+        me = _eager(eager, it, vis, scene, gts)
+        torch.cuda.synchronize()
+        _assert_equal(graphed, eager, mg, me, f"block {block}")
+        assert in_place == (block < 2), block
+        if block < 2:
+            _, info = graphed.last_densify
+            grown += int(info["n_clone"]) + int(info["n_split"])
+    assert grown > 0
+    assert graphed.state.capacity == cap
+    assert graphed.graph.captures == 1
+    assert graphed.graph.replays == 3 * K - 1
 
 
 @pytest.mark.gpu

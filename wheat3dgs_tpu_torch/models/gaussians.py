@@ -9,9 +9,11 @@ _which_object, grad_accum/denom <- xyz_gradient_accum/denom, max_radii2d
 <- max_radii2D). Activations match: exp / sigmoid / normalized quats.
 
 Densify/prune keep the capacity fixed (masked scatters into free slots)
-and return a state of new tensors; capacity only grows by `grow_capacity`.
-Nothing else may keep a reference to the old tensors: the training step
-reads the leaves from the state it is given each time.
+and return a state of new tensors, never writing their input; capacity
+only grows by `grow_capacity`. `assign_` copies such a result back into
+an existing state's own tensors, so that whatever holds their addresses
+(the training loop's captured CUDA graph) reads the new rows: the
+training step reads the leaves from the state it is given each time.
 """
 
 from __future__ import annotations
@@ -110,6 +112,14 @@ def map_tensors(fn: Callable[..., torch.Tensor],
                 for k in states[0].adam.nu},
             step=steps.pop()),
         **{f: each(lambda s, f=f: getattr(s, f)) for f in STAT_FIELDS})
+
+
+def assign_(dst: GaussianState, src: GaussianState) -> GaussianState:
+    """Copy every tensor of `src` into the tensor at the same place of
+    `dst`, in place (the addresses of dst's tensors stay); returns dst.
+    Both states have one capacity and one Adam step."""
+    map_tensors(lambda d, s: d.copy_(s), dst, src)
+    return dst
 
 
 def _round_capacity(n: int) -> int:

@@ -9,12 +9,12 @@ train_vanilla_3dgs.py:55-121):
   `value_and_grad` is: the parameters are plain tensors, the step takes
   fresh leaves of them and calls `torch.autograd.grad(loss, leaves)` (plus
   a zero `ndc_offset`, whose gradient is the CUDA rasterizer's viewspace
-  gradient). Densification and capacity growth replace every tensor, so no
-  `.grad` or optimizer bookkeeping can go stale. Adam and the statistics
-  then update the state's tensors in place. The step's scalars (each
-  leaf's learning rate, Adam's bias corrections) come in one float32 row
-  on the device (`step_scalars`), so a step captured in a CUDA graph
-  reads each step's values.
+  gradient), so no `.grad` or optimizer bookkeeping can go stale when
+  densification writes new rows or capacity growth replaces every tensor.
+  Adam and the statistics update the state's tensors in place. The step's
+  scalars (each leaf's learning rate, Adam's bias corrections) come in one
+  float32 row on the device (`step_scalars`), so a step captured in a
+  CUDA graph reads each step's values.
 - `multi_plot_step` (`MultiPlotStep`): one step of P independent plots x
   B views each on states stacked on a leading P axis (the scale-out the
   reference leaves to one SLURM job per plot). The plots run one after
@@ -27,10 +27,12 @@ train_vanilla_3dgs.py:55-121):
   `occupancy_probe`'s max tile count and 99th-percentile footprint pick
   max_per_tile and max_tiles_per_gauss), the deferred overflow watchdog
   (on "pallas" only: the padded-tile path reports no demand), and
-  densify/prune/opacity reset with capacity growth.
-  `Trainer.step` runs one step; `Trainer.step_block` (JAX's `step_block`
-  over `train_step_scan`) runs K steps from a device table of view picks
-  and scalar rows: on a CUDA device replayed from a CUDA graph
+  densify/prune/opacity reset with capacity growth. A densify that
+  leaves the capacity as it was writes its result back into the state's
+  own tensors, so the captured step stays valid; only a growth adopts new
+  tensors. `Trainer.step` runs one step; `Trainer.step_block` (JAX's
+  `step_block` over `train_step_scan`) runs K steps from a device table of
+  view picks and scalar rows: on a CUDA device replayed from a CUDA graph
   (`training_graph.StepGraph`), on the CPU as K eager steps of the same
   code.
 
@@ -38,7 +40,8 @@ train_vanilla_3dgs.py:55-121):
   "train.eager_step" (`Trainer.step`'s step), "train.occupancy",
   "train.watchdog" and "train.densify" (with "train.grow_capacity" inside
   it), and every blocking device-to-host read of the schedule counts in
-  the `host_reads` counter.
+  the `host_reads` counter; `densify_in_place` counts the densifies whose
+  result went back into the state's own tensors.
 """
 
 from __future__ import annotations
@@ -577,9 +580,10 @@ class Trainer:
         """What a captured step bakes in: the address and shape of every
         tensor it reads or writes outside its own memory pool, the raster
         config (the entry budget, or the padded-tile path's rungs), the
-        active SH degree and the image size. Densify/prune,
-        capacity growth, opacity reset and a checkpoint load replace state
-        tensors, so each changes the key."""
+        active SH degree and the image size. Capacity growth, opacity
+        reset and a checkpoint load replace state tensors, so each changes
+        the key; a densify at an unchanged capacity writes into the
+        state's tensors (`maybe_densify`) and keeps it."""
         tensors = (state_tensors(self.state) + list(cam_stacks)
                    + [gt_stack, self._table, self._j, self._block_max,
                       self._bg]
@@ -619,20 +623,23 @@ class Trainer:
         with trace.span("train.densify"):
             if densify:
                 max_screen = 20.0 if it > opt.opacity_reset_interval else 0.0
-                self.state, info = G.densify_and_prune(
-                    self.state, opt.densify_grad_threshold, 0.005,
-                    self.extent, max_screen, opt.percent_dense,
-                    generator=self.generator)
+                # densify_and_prune reads a frozen copy: its input is never
+                # written afterwards, while the working set is.
+                new, info = G.densify_and_prune(
+                    G.map_tensors(torch.clone, self.state),
+                    opt.densify_grad_threshold, 0.005, self.extent,
+                    max_screen, opt.percent_dense, generator=self.generator)
                 self.last_densify = (it, info)
                 if host_int(info["n_dropped"]) > 0 or (
-                        host_int(info["n_alive"])
-                        > 0.9 * self.state.capacity):
+                        host_int(info["n_alive"]) > 0.9 * new.capacity):
                     with trace.span("train.grow_capacity"):
-                        self.state = G.grow_capacity(
-                            self.state,
-                            max(G._round_capacity(
-                                    int(1.3 * host_int(info["n_alive"]))),
-                                self.state.capacity + 32768))
+                        n = int(1.3 * host_int(info["n_alive"]))
+                        self.state = G.grow_capacity(new, max(
+                            G._round_capacity(n), new.capacity + 32768))
+                else:
+                    # The captured step's addresses stay: no recapture.
+                    G.assign_(self.state, new)
+                    trace.count("densify_in_place")
                 self._occupancy_due = True
             if reset:
                 self.state = G.reset_opacity(self.state)
